@@ -1,0 +1,23 @@
+"""spark_rapids_jni_tpu_torch: PyTorch and CUDA port of spark_rapids_jni_tpu.
+
+It runs on one NVIDIA Hopper card (sm_90a).  The JAX package beside it is
+the reference; this package imports neither JAX nor that package.
+
+- ``table``: fixed-width ``Column``/``Table`` containers as torch tensors.
+- ``ops.row_conversion``: JCUDF row-format <-> column conversion, the
+  flagship op (reference ``src/main/cpp/src/row_conversion.cu``).
+- ``ops.row_mxu``: word plans and the plane-major table backing.
+- ``ops.kernels``: the hand-written CUDA kernels (``csrc/``), their
+  wrappers, plain versions and build.
+- ``utils.datagen``: seeded random fixed-width tables, made on the device.
+- ``interop``: tables and backings to and from numpy, to hold the port
+  against the JAX package on the same data.
+
+Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
+"""
+
+from spark_rapids_jni_tpu_torch.table import (  # noqa: F401
+    ALL_FIXED_WIDTH, BOOL8, DATE32, FLOAT32, FLOAT64, INT8, INT16, INT32,
+    INT64, STRING, TIMESTAMP64, UINT8, UINT16, UINT32, UINT64, Column, DType,
+    Table, decimal32, decimal64,
+)

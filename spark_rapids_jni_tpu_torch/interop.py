@@ -1,0 +1,66 @@
+"""Carry tables and plane-major backings across from the JAX package, as numpy.
+
+Both packages compute on the same data only if it crosses bit for bit.  The
+JAX package's tables are handed over as numpy arrays (one
+``(dtype name, values, packed validity or None)`` triple per column, the
+name being ``repr`` of the column type, which both packages print alike),
+and its ``GroupedColumns`` as uint32 planes plus packed masks.  Nothing here
+imports JAX: the caller does the ``np.asarray``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from spark_rapids_jni_tpu_torch.table import (
+    Column, DType, Table, dtype_from_name, resolve_device,
+)
+from spark_rapids_jni_tpu_torch.ops.row_layout import compute_row_layout
+from spark_rapids_jni_tpu_torch.ops.row_mxu import GroupedColumns
+
+ColumnArrays = Tuple[str, np.ndarray, Optional[np.ndarray]]
+
+
+def _dtype(d: Union[str, DType]) -> DType:
+    return d if isinstance(d, DType) else dtype_from_name(d)
+
+
+def table_from_numpy_columns(columns: Sequence[ColumnArrays],
+                             device=None) -> Table:
+    """A port table from ``(dtype name, values [n], packed validity
+    uint8 [ceil(n/8)] or None)`` triples."""
+    dev = resolve_device(device)
+    return Table(tuple(Column.from_packed_numpy(values, _dtype(name),
+                                                validity, dev)
+                       for name, values, validity in columns))
+
+
+def table_to_numpy_columns(table: Table) -> List[ColumnArrays]:
+    """Inverse of :func:`table_from_numpy_columns`."""
+    return [(repr(c.dtype), c.to_numpy(),
+             None if c.validity is None else c.validity.cpu().numpy())
+            for c in table.columns]
+
+
+def grouped_from_numpy(planes: np.ndarray, vmask: np.ndarray,
+                       dtypes: Sequence[Union[str, DType]],
+                       device=None) -> GroupedColumns:
+    """A port backing from uint32 ``[W, n]`` planes and uint8
+    ``[ncols, ceil(n/8)]`` packed masks (the planes become int32 tensors
+    with the same bits)."""
+    dev = resolve_device(device)
+    layout = compute_row_layout([_dtype(d) for d in dtypes])
+    p = np.ascontiguousarray(np.asarray(planes, np.uint32)).view(np.int32)
+    v = np.ascontiguousarray(np.asarray(vmask, np.uint8))
+    return GroupedColumns(torch.from_numpy(p.copy()).to(dev),
+                          torch.from_numpy(v.copy()).to(dev), layout)
+
+
+def grouped_to_numpy(gc: GroupedColumns) -> Tuple[np.ndarray, np.ndarray]:
+    """Inverse of :func:`grouped_from_numpy`: (uint32 planes, uint8
+    masks)."""
+    return (gc.planes.cpu().numpy().view(np.uint32),
+            gc.vmask.cpu().numpy())

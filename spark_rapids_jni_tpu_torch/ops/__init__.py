@@ -1,0 +1,17 @@
+"""Row conversion ops of the PyTorch port (fixed-width tables)."""
+
+from spark_rapids_jni_tpu_torch.ops.row_layout import (  # noqa: F401
+    JCUDF_ROW_ALIGNMENT, MAX_BATCH_BYTES, MAX_ROW_SIZE, RowLayout,
+    compute_row_layout,
+)
+from spark_rapids_jni_tpu_torch.ops.row_conversion import (  # noqa: F401
+    RowsColumn,
+    convert_from_rows,
+    convert_from_rows_fixed_width_optimized,
+    convert_from_rows_grouped,
+    convert_to_rows,
+    convert_to_rows_fixed_width_optimized,
+    convert_to_rows_grouped,
+    plan_fixed_batches,
+    plan_grouped_batches,
+)

@@ -1,0 +1,346 @@
+"""The row-conversion kernels: hand-written CUDA for Hopper, their wrappers,
+their plain PyTorch versions and their build.
+
+- :func:`grouped_encode` (``csrc/row_encode.cu``) replaces the TPU kernel
+  ``spark_rapids_jni_tpu/ops/row_mxu.py::_grouped_encode_kernel``: the
+  plane-major backing to JCUDF rows.
+- :func:`decode_planes` (``csrc/row_decode.cu``) replaces
+  ``row_mxu.py::_fused_decode_kernel``: JCUDF rows to word planes and packed
+  validity.
+
+A wrapper runs the plain version only for tensors on the CPU.  For CUDA
+tensors it launches its kernel or raises; there is no fallback.  Each launch
+adds one to ``launches[name]``.
+
+The kernels build at first use: one ``nvcc`` per source, all started
+together, into ``build/torch_kernels/`` at the repository root, as shared
+libraries with a plain C interface loaded with ``ctypes``.  A library's file
+name carries a hash of its sources and flags, so an edit rebuilds it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from spark_rapids_jni_tpu_torch.table import pack_bools
+from spark_rapids_jni_tpu_torch.ops import word_plan
+from spark_rapids_jni_tpu_torch.ops.row_layout import RowLayout
+
+# launches of each kernel since the last reset_launches()
+launches = {"grouped_encode": 0, "decode_planes": 0}
+
+
+def reset_launches():
+    for name in launches:
+        launches[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Build
+# ---------------------------------------------------------------------------
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+SOURCES = {"grouped_encode": "row_encode.cu", "decode_planes": "row_decode.cu"}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.access(os.path.join(home, "bin", "nvcc"), os.X_OK):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA "
+                           "toolkit's bin directory on PATH")
+    return found
+
+
+def _library_path(name: str) -> Path:
+    src = CSRC / SOURCES[name]
+    digest = hashlib.sha256()
+    for part in (src, CSRC / "launch.cuh"):
+        digest.update(part.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def _declare(name: str, lib: ctypes.CDLL):
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    if name == "grouped_encode":
+        lib.srj_grouped_encode.argtypes = [
+            vp, i64, vp, i64, vp, i32, i32, i32, i32, i64, i64, vp, i32, vp]
+        lib.srj_grouped_encode.restype = i32
+    else:
+        lib.srj_decode_planes.argtypes = [
+            vp, i64, i32, vp, i32, i32, i32, i64, vp, vp, i64, i32, vp]
+        lib.srj_decode_planes.restype = i32
+    lib.srj_cuda_error_string.argtypes = [i32]
+    lib.srj_cuda_error_string.restype = ctypes.c_char_p
+
+
+def build_kernels() -> Dict[str, ctypes.CDLL]:
+    """Build (where not built yet) and load every kernel library.  Each
+    source compiles in its own ``nvcc`` process, all started together;
+    ``nvcc``'s output, register and shared-memory use included, is kept
+    beside each library as ``<name>.log``."""
+    missing = [name for name in SOURCES if name not in _libs]
+    if not missing:
+        return _libs
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in missing:
+        so = _library_path(name)
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, proc, tmp, so))
+    failures = []
+    for name, proc, tmp, so in jobs:
+        out, _ = proc.communicate()
+        so.with_suffix(".log").write_text(out)
+        if proc.returncode:
+            failures.append(f"{SOURCES[name]}:\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failures:
+        raise RuntimeError("nvcc failed for " + "\n".join(failures))
+    for name in missing:
+        lib = ctypes.CDLL(str(_library_path(name)))
+        _declare(name, lib)
+        _libs[name] = lib
+    return _libs
+
+
+def build_log(name: str) -> str:
+    """``nvcc``'s output for kernel ``name`` (after :func:`build_kernels`)."""
+    return _library_path(name).with_suffix(".log").read_text()
+
+
+def _raise_on(rc: int, lib: ctypes.CDLL, name: str):
+    if rc:
+        msg = lib.srj_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
+
+
+def _check(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(msg)
+
+
+# ---------------------------------------------------------------------------
+# Static maps, built once per layout from the word plans
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def encode_byte_map(layout: RowLayout) -> np.ndarray:
+    """int16 ``[row_size]``: for each row byte, its plane byte ``4 * word +
+    byte`` (>= 0), zero padding (-1) or validity byte ``v`` (``-2 - v``),
+    from the forward plan."""
+    _, p = word_plan._forward_plan(layout)
+    wd = word_plan._data_words(layout)
+    rs = layout.fixed_row_size
+    src, dst = np.nonzero(p.view(np.uint8)[:wd].reshape(4 * wd, rs))
+    if len(np.unique(dst)) != len(dst):
+        raise AssertionError("forward plan maps two plane bytes to one row "
+                             "byte")
+    m = np.full(rs, -1, np.int16)
+    m[dst] = src
+    vo, vb = layout.validity_offset, layout.validity_bytes
+    m[vo:vo + vb] = -2 - np.arange(vb)
+    return m
+
+
+@functools.lru_cache(maxsize=64)
+def decode_word_map(layout: RowLayout) -> np.ndarray:
+    """int16 ``[4 * W]``: for byte ``k`` of plane word ``w`` (index
+    ``4 * w + k``), its source row byte or -1, from the inverse plan."""
+    _, p = word_plan._inverse_plan(layout)
+    rs, w, _ = p.shape
+    src, dst = np.nonzero(p.reshape(rs, 4 * w))
+    if len(np.unique(dst)) != len(dst):
+        raise AssertionError("inverse plan maps two row bytes to one plane "
+                             "byte")
+    m = np.full(4 * w, -1, np.int16)
+    m[dst] = src
+    return m
+
+
+@functools.lru_cache(maxsize=64)
+def _device_map(build, layout: RowLayout,
+                device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(build(layout)).to(device)
+
+
+def _index(m: np.ndarray, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(clamped int64 gather index, mask of the entries with a source)."""
+    t = torch.from_numpy(m.astype(np.int64)).to(device)
+    return t.clamp(min=0), t >= 0
+
+
+# ---------------------------------------------------------------------------
+# K1: grouped_encode
+# ---------------------------------------------------------------------------
+
+def _check_encode(planes, vmask, layout, start, size):
+    wd = word_plan._data_words(layout)
+    _check(planes.dtype == torch.int32 and planes.dim() == 2
+           and planes.shape[0] >= wd,
+           f"planes must be int32 [>= {wd}, n], got {planes.dtype} "
+           f"{tuple(planes.shape)}")
+    n = planes.shape[1]
+    shape = (layout.num_columns, (n + 7) // 8)
+    _check(vmask.dtype == torch.uint8 and tuple(vmask.shape) == shape,
+           f"vmask must be uint8 {shape}, got {vmask.dtype} "
+           f"{tuple(vmask.shape)}")
+    _check(planes.is_contiguous() and vmask.is_contiguous(),
+           "planes and vmask must be contiguous")
+    _check(planes.device == vmask.device,
+           f"planes on {planes.device}, vmask on {vmask.device}")
+    _check(0 <= start and 0 <= size and start + size <= n,
+           f"batch [{start}, {start + size}) outside {n} rows")
+
+
+def grouped_encode_plain(planes: torch.Tensor, vmask: torch.Tensor,
+                         layout: RowLayout, start: int,
+                         size: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`grouped_encode`: a byte gather from
+    the ``[size, 4 * Wd]`` byte view of the batch's data planes, then the
+    validity bytes from the mask bits."""
+    _check_encode(planes, vmask, layout, start, size)
+    dev = planes.device
+    wd = word_plan._data_words(layout)
+    idx, has = _index(encode_byte_map(layout), dev)
+    data = torch.empty((size, wd), dtype=torch.int32, device=dev)
+    data.copy_(planes[:wd, start:start + size].T)
+    data = data.view(torch.uint8)
+    out = data.index_select(1, idx)
+    out[:, ~has] = 0
+    rows = torch.arange(start, start + size, device=dev)
+    bits = (vmask[:, rows >> 3] >> (rows & 7).to(torch.uint8)) & 1
+    vo, vb = layout.validity_offset, layout.validity_bytes
+    bits = torch.nn.functional.pad(bits, (0, 0, 0, 8 * vb - bits.shape[0]))
+    bits = bits.view(vb, 8, size)
+    vbytes = bits[:, 0].clone()
+    for j in range(1, 8):
+        vbytes |= bits[:, j] << j
+    out[:, vo:vo + vb] = vbytes.T
+    return out
+
+
+def grouped_encode(planes: torch.Tensor, vmask: torch.Tensor,
+                   layout: RowLayout, start: int, size: int) -> torch.Tensor:
+    """K1: JCUDF rows ``uint8 [size, row_size]`` of table rows
+    ``[start, start + size)`` of a plane-major backing (``planes`` int32
+    ``[W_in >= Wd, n]``, ``vmask`` uint8 ``[ncols, ceil(n/8)]``).  Any
+    ``start`` is accepted."""
+    _check_encode(planes, vmask, layout, start, size)
+    if planes.device.type == "cpu":
+        return grouped_encode_plain(planes, vmask, layout, start, size)
+    _check(planes.device.type == "cuda",
+           f"no kernel for device {planes.device}")
+    lib = build_kernels()["grouped_encode"]
+    rs = layout.fixed_row_size
+    out = torch.empty((size, rs), dtype=torch.uint8, device=planes.device)
+    if size:
+        byte_map = _device_map(encode_byte_map, layout, planes.device)
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        rc = lib.srj_grouped_encode(
+            planes.data_ptr(), planes.shape[1], vmask.data_ptr(),
+            vmask.shape[1], byte_map.data_ptr(),
+            word_plan._data_words(layout), layout.num_columns,
+            layout.validity_bytes, rs, start, size, out.data_ptr(),
+            planes.device.index, stream)
+        _raise_on(rc, lib, "grouped_encode")
+        launches["grouped_encode"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: decode_planes
+# ---------------------------------------------------------------------------
+
+def _decode_load_bytes(layout: RowLayout) -> int:
+    """Bytes of each row the decode reads: through the last byte the word
+    map names (the validity bytes), rounded up to a 4-byte word."""
+    return (int(decode_word_map(layout).max()) + 1 + 3) // 4 * 4
+
+
+def _check_decode(rows2d, layout):
+    _check(rows2d.dtype == torch.uint8 and rows2d.dim() == 2,
+           f"rows must be uint8 [n, row_stride], got {rows2d.dtype} "
+           f"{tuple(rows2d.shape)}")
+    _check(rows2d.is_contiguous(), "rows must be contiguous")
+    _check(rows2d.shape[1] >= _decode_load_bytes(layout),
+           f"row stride {rows2d.shape[1]} is shorter than the layout's "
+           f"{layout.fixed_end} fixed bytes")
+
+
+def decode_planes_plain(rows2d: torch.Tensor, layout: RowLayout
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`decode_planes`: a byte gather of the
+    rows' plane bytes, viewed as words and transposed, and the packed
+    masks from the rows' validity bytes."""
+    _check_decode(rows2d, layout)
+    idx, has = _index(decode_word_map(layout), rows2d.device)
+    g = rows2d.index_select(1, idx)
+    g[:, ~has] = 0
+    planes = torch.empty((g.shape[1] // 4, g.shape[0]), dtype=torch.int32,
+                         device=rows2d.device)
+    planes.copy_(g.view(torch.int32).T)
+    vo, vb = layout.validity_offset, layout.validity_bytes
+    shifts = torch.arange(8, dtype=torch.uint8, device=rows2d.device)
+    bits = (rows2d[:, vo:vo + vb].unsqueeze(-1) >> shifts) & 1
+    bits = bits.reshape(rows2d.shape[0], 8 * vb)[:, :layout.num_columns]
+    return planes, pack_bools(bits.T)
+
+
+def decode_planes(rows2d: torch.Tensor, layout: RowLayout
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: decode ``rows2d`` (uint8 ``[n, row_stride]``; the stride may
+    exceed the layout's row size, as padded string rows do) to int32
+    ``[W, n]`` inverse-plan word planes and uint8 ``[ncols, ceil(n/8)]``
+    packed validity whose bits past ``n`` are zero."""
+    _check_decode(rows2d, layout)
+    if rows2d.device.type == "cpu":
+        return decode_planes_plain(rows2d, layout)
+    _check(rows2d.device.type == "cuda",
+           f"no kernel for device {rows2d.device}")
+    stride = rows2d.shape[1]
+    _check(stride % 4 == 0 and rows2d.data_ptr() % 4 == 0,
+           "the decode kernel reads 4-byte words: row stride and start "
+           "must be 4-byte aligned")
+    lib = build_kernels()["decode_planes"]
+    n = rows2d.shape[0]
+    num_words = word_plan._inverse_plan(layout)[0].num_words
+    dev = rows2d.device
+    planes = torch.empty((num_words, n), dtype=torch.int32, device=dev)
+    vmask = torch.empty((layout.num_columns, (n + 7) // 8),
+                        dtype=torch.uint8, device=dev)
+    if n:
+        word_map = _device_map(decode_word_map, layout, dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.srj_decode_planes(
+            rows2d.data_ptr(), stride, _decode_load_bytes(layout),
+            word_map.data_ptr(), num_words, layout.num_columns,
+            layout.validity_offset, n, planes.data_ptr(), vmask.data_ptr(),
+            vmask.shape[1], dev.index, stream)
+        _raise_on(rc, lib, "decode_planes")
+        launches["decode_planes"] += 1
+    return planes, vmask

@@ -1,0 +1,5 @@
+"""Utilities of the PyTorch port."""
+
+from spark_rapids_jni_tpu_torch.utils.datagen import (  # noqa: F401
+    cycle_dtypes, random_table,
+)

@@ -1,0 +1,116 @@
+"""Shared helpers of the ``test_torch_*`` suites: the same seeded numpy data
+fed to the JAX package and to its PyTorch port, and comparisons by bytes."""
+
+import numpy as np
+
+from spark_rapids_jni_tpu import table as jt
+from spark_rapids_jni_tpu_torch import interop
+from spark_rapids_jni_tpu_torch import table as pt
+
+# the reference's fixed-width sweep (tests/test_row_mxu.py ALL_FIXED)
+ALL_FIXED_NAMES = ["int64", "float64", "uint64", "int32", "uint32",
+                   "float32", "int16", "uint16", "int8", "uint8", "bool8",
+                   "decimal32(scale=2)", "decimal64(scale=-1)"]
+# the reference benchmark's 212-column schema (bench.py:53)
+WIDE_NAMES = [["int64", "float64", "int32", "float32", "int16", "int8",
+               "bool8"][i % 7] for i in range(212)]
+NULL_MODES = ["none", "all", "zero", "some"]
+
+
+def jax_dtype(name):
+    """The JAX package's DType for a port type name."""
+    d = pt.dtype_from_name(name)
+    if d.kind == "decimal32":
+        return jt.decimal32(d.scale)
+    if d.kind == "decimal64":
+        return jt.decimal64(d.scale)
+    return getattr(jt, {"timestamp_us": "TIMESTAMP64"}.get(
+        d.kind, d.kind.upper()))
+
+
+def numpy_columns(rng, names, n, null_mode="some"):
+    """(name, values, bool validity or None) per column: uniform random
+    bytes (floats take every bit pattern, NaN payloads included), BOOL8 as
+    0/1."""
+    cols = []
+    for name in names:
+        d = pt.dtype_from_name(name)
+        raw = rng.integers(0, 256, n * d.itemsize, dtype=np.uint8)
+        if d.kind == "bool8":
+            raw &= 1
+        vals = raw.view(d.np_dtype)
+        if null_mode == "none":
+            valid = None
+        elif null_mode == "all":
+            valid = np.ones(n, bool)
+        elif null_mode == "zero":
+            valid = np.zeros(n, bool)
+        else:
+            valid = rng.random(n) > 0.25
+        cols.append((name, vals, valid))
+    return cols
+
+
+def both_tables(rng, names, n, null_mode="some"):
+    """The same random table in both packages: (JAX Table, port Table on
+    the CPU)."""
+    cols = numpy_columns(rng, names, n, null_mode)
+    jax_table = jt.Table(tuple(jt.Column.from_numpy(v, jax_dtype(name), ok)
+                               for name, v, ok in cols))
+    port = pt.Table(tuple(
+        pt.Column.from_numpy(v, pt.dtype_from_name(name), ok, device="cpu")
+        for name, v, ok in cols))
+    return jax_table, port
+
+
+def port_table(rng, names, n, null_mode="some"):
+    """A random port table on the CPU, for tests with no JAX side."""
+    return pt.Table(tuple(
+        pt.Column.from_numpy(v, pt.dtype_from_name(name), ok, device="cpu")
+        for name, v, ok in numpy_columns(rng, names, n, null_mode)))
+
+
+def jax_columns(table):
+    """A JAX table as interop triples (64-bit plane pairs as native
+    values)."""
+    out = []
+    for c in table.columns:
+        data = np.asarray(c.data)
+        if data.ndim == 2 and c.dtype.itemsize == 8:
+            data = jt.pair_to_np64(data, c.dtype.np_dtype)
+        validity = None if c.validity is None else np.asarray(c.validity)
+        out.append((repr(c.dtype), data.view(c.dtype.np_dtype), validity))
+    return out
+
+
+def assert_same_columns(port_table, jax_table):
+    """Types, data bytes (under nulls too) and packed validity bytes equal;
+    a missing mask equals an all-valid one."""
+    got = interop.table_to_numpy_columns(port_table)
+    want = jax_columns(jax_table)
+    assert len(got) == len(want)
+    for i, ((gn, gd, gv), (wn, wd, wv)) in enumerate(zip(got, want)):
+        assert gn == wn, (i, gn, wn)
+        assert gd.dtype == wd.dtype, (i, gd.dtype, wd.dtype)
+        np.testing.assert_array_equal(gd.view(np.uint8), wd.view(np.uint8),
+                                      err_msg=f"column {i} data")
+        n = len(gd)
+        gb = np.unpackbits(gv, bitorder="little")[:n] if gv is not None \
+            else np.ones(n, np.uint8)
+        wb = np.unpackbits(wv, bitorder="little")[:n] if wv is not None \
+            else np.ones(n, np.uint8)
+        np.testing.assert_array_equal(gb, wb, err_msg=f"column {i} validity")
+        if gv is not None and wv is not None:
+            np.testing.assert_array_equal(gv, wv,
+                                          err_msg=f"column {i} mask bytes")
+
+
+def assert_same_batches(port_batches, jax_batches):
+    """Row counts, offsets and every row byte equal."""
+    assert [b.num_rows for b in port_batches] == \
+        [b.num_rows for b in jax_batches]
+    for p, j in zip(port_batches, jax_batches):
+        np.testing.assert_array_equal(p.offsets.numpy(),
+                                      np.asarray(j.offsets))
+        np.testing.assert_array_equal(p.data.numpy().reshape(-1),
+                                      np.asarray(j.data).reshape(-1))

@@ -1,0 +1,105 @@
+"""PyTorch port, the CUDA kernels against their plain versions.
+
+The tests marked ``gpu`` need a CUDA card and skip without one.  This file
+imports neither JAX nor the JAX package, so on a machine with a card and no
+JAX it runs alone:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -m gpu -q
+"""
+
+import pytest
+import torch
+
+from spark_rapids_jni_tpu_torch import (
+    BOOL8, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64, UINT8, UINT16,
+    UINT32, UINT64, decimal32, decimal64,
+)
+from spark_rapids_jni_tpu_torch.ops import kernels, row_mxu
+from spark_rapids_jni_tpu_torch.ops import row_conversion as prc
+from spark_rapids_jni_tpu_torch.ops.row_layout import compute_row_layout
+from spark_rapids_jni_tpu_torch.table import assert_tables_equivalent
+from spark_rapids_jni_tpu_torch.utils import cycle_dtypes, random_table
+
+ALL_FIXED = [INT64, FLOAT64, UINT64, INT32, UINT32, FLOAT32, INT16, UINT16,
+             INT8, UINT8, BOOL8, decimal32(2), decimal64(-1)]
+WIDE = cycle_dtypes([INT64, FLOAT64, INT32, FLOAT32, INT16, INT8, BOOL8], 212)
+SCHEMAS = {"all_fixed": ALL_FIXED, "wide212": WIDE, "one_int8": [INT8],
+           "odd_int16": [INT16] * 3, "int64_pair": [INT64, INT64]}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def test_plain_versions_round_trip_on_cpu():
+    """What the card's tests compare against: on the CPU both wrappers are
+    their plain versions, and they invert each other."""
+    layout = compute_row_layout(ALL_FIXED)
+    t = random_table(ALL_FIXED, 203, seed=4, device="cpu")
+    gc = row_mxu.table_to_grouped(t, layout)
+    rows = kernels.grouped_encode(gc.planes, gc.vmask, layout, 0, 203)
+    planes, vmask = kernels.decode_planes(rows, layout)
+    wd = row_mxu._data_words(layout)
+    assert torch.equal(planes[:wd], gc.planes)
+    assert torch.equal(vmask, gc.vmask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schema", sorted(SCHEMAS))
+@pytest.mark.parametrize("n", [1, 31, 1000, 6 * 1024 + 557])
+def test_kernels_match_plain_versions(cuda, schema, n):
+    dtypes = SCHEMAS[schema]
+    layout = compute_row_layout(dtypes)
+    for nulls in (None, 0.0, 1.0, 0.25):
+        t = random_table(dtypes, n, seed=n, null_probability=nulls,
+                         device=cuda)
+        gc = row_mxu.table_to_grouped(t, layout)
+        for start in sorted({0, min(5, n - 1), n // 3}):
+            k = kernels.grouped_encode(gc.planes, gc.vmask, layout, start,
+                                       n - start)
+            p = kernels.grouped_encode_plain(gc.planes, gc.vmask, layout,
+                                             start, n - start)
+            assert torch.equal(k, p), (nulls, start)
+        rows = kernels.grouped_encode(gc.planes, gc.vmask, layout, 0, n)
+        wide = torch.full((n, layout.fixed_row_size + 40), 0x5A,
+                          dtype=torch.uint8, device=cuda)
+        wide[:, :layout.fixed_row_size] = rows
+        for r2d in (rows, wide):
+            pk, vk = kernels.decode_planes(r2d, layout)
+            pp, vp = kernels.decode_planes_plain(r2d, layout)
+            assert torch.equal(pk, pp) and torch.equal(vk, vp), nulls
+        offsets = torch.arange(n + 1, dtype=torch.int32,
+                               device=cuda) * layout.fixed_row_size
+        back = prc.convert_from_rows(prc.RowsColumn(rows, offsets), dtypes,
+                                     device=cuda)
+        assert_tables_equivalent(t, back, check_nulls=False)
+
+
+@pytest.mark.gpu
+def test_launches_count_kernel_runs_only(cuda):
+    layout = compute_row_layout(ALL_FIXED)
+    t = random_table(ALL_FIXED, 100, device=cuda)
+    gc = row_mxu.table_to_grouped(t, layout)
+    kernels.reset_launches()
+    rows = kernels.grouped_encode(gc.planes, gc.vmask, layout, 0, 100)
+    kernels.decode_planes(rows, layout)
+    kernels.grouped_encode(gc.planes, gc.vmask, layout, 10, 0)
+    kernels.grouped_encode_plain(gc.planes, gc.vmask, layout, 0, 100)
+    kernels.decode_planes_plain(rows, layout)
+    assert kernels.launches == {"grouped_encode": 1, "decode_planes": 1}
+    empty = kernels.decode_planes(rows[:0], layout)
+    assert empty[0].shape == (row_mxu._inverse_plan(layout)[0].num_words, 0)
+    assert kernels.launches == {"grouped_encode": 1, "decode_planes": 1}
+
+
+@pytest.mark.gpu
+def test_decode_kernel_rejects_unaligned_rows(cuda):
+    layout = compute_row_layout([INT32, INT8])
+    buf = torch.zeros(8 * 12 + 2, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        kernels.decode_planes(buf[2:].view(8, 12), layout)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        kernels.decode_planes(buf[:80].view(8, 10), layout)
