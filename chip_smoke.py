@@ -2,39 +2,98 @@
 """Smoke run of the PyTorch port on one CUDA card: ``python3 chip_smoke.py``.
 
 Builds the port's kernels from ``spark_rapids_jni_tpu_torch/csrc`` and drives
-the main path, fixed-width JCUDF row conversion, at the reference
-benchmark's axes: 212 fixed-width columns (``cycle_dtypes`` of INT64,
-FLOAT64, INT32, FLOAT32, INT16, INT8, BOOL8), 1M and 4M rows, both
-directions, and then once at 10.24M rows of random planes, where the
-kernels' element indices pass 2^31.  Every kernel is held against its plain
-PyTorch version on the card, byte for byte, at every one of those shapes,
-and every round trip must give back its input bit for bit, nulls and data
-under nulls included.  Each kernel is timed at 1M rows; its bound is the
-bytes it must move over the card's published memory rate.
+its paths, each through the entry points a user calls, with every kernel's
+launch count set to 0 just before the path and read just after:
+
+- fixed-width JCUDF row conversion at the reference benchmark's axes: 212
+  fixed-width columns (``cycle_dtypes`` of INT64, FLOAT64, INT32, FLOAT32,
+  INT16, INT8, BOOL8), 1M and 4M rows, both directions, and once at 10.24M
+  rows of random planes, where the kernels' element indices pass 2^31;
+- Spark hash partitioning of the decoded 4M rows: ``convert_from_rows_grouped``
+  of each batch, then ``hash_partition_ids`` of its INT32 and INT16 columns
+  into Spark's default 200 shuffle partitions;
+- ``xxhash64`` and ``murmur3_hash`` over 8 INT64 key columns, and over a
+  padded string column (lengths 0..64) and an INT64 column, at 4M rows;
+- the bloom probe ``might_contain_device`` of 4M INT64 rows against Spark's
+  runtime-filter defaults: 8,388,608 bits with 1M build keys, and the
+  67,108,864-bit maximum with 4M build keys, built on the host.
+
+Every kernel is held against its plain PyTorch version on the card, bit for
+bit, at every one of those shapes; then against 64-bit offsets (a string
+column of 24M rows of 96 bytes, a filter of 2^31 + 64 bits) and at edge
+shapes, types and null patterns.  Row conversion round trips must give back
+their input bit for bit; partition ids must equal those of the original
+columns; the bloom probe must equal the host probe, keep every build key and
+give False for nulls.  Each kernel is timed, its bound being the larger of
+the bytes it must move over the card's memory rate and the arithmetic
+instructions its work needs over the card's issue rate.
 
 Each phase prints one JSON line.  Near the end come the card's name and
 power limit (``nvidia-smi``) and one ``{"kernels": [...]}`` line; the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero and does not print that line, as it does when no CUDA
 card is present or the package is not beside it.  It needs no arguments,
-one card and no network.
+one card and no network; its device memory peaks at about 43 GB (the 10.24M
+row phase).
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM device memory rate (NVIDIA data sheet): the bytes side of bound_ms
 PEAK_BYTES_PER_S = 3.35e12
+# Instructions a second the card can issue: 4 warp-instructions a clock on
+# each SM (one per scheduler) of 32 threads, on 132 SMs at 1.98 GHz, the
+# clock at which the data sheet's 67 TFLOP/s of float32 is 132 SMs x 128
+# lanes x 2 flops.  A mixed stream of 32-bit integer instructions (IMAD on
+# the FMA pipe beside IADD3, LOP3 and SHF on the ALU pipe) can reach it, so
+# it is the instructions side of the hash kernels' bound_ms.
+PEAK_INSTR_PER_S = 132 * 4 * 32 * 1.98e9
 N_1M = 1_000_000
 N_4M = 4_000_000
 # rows of the 64-bit offsets phase: 213 planes of this many words pass 2^31
 N_WIDE = 10_240_000
+# a padded string column whose chars pass 2^31 bytes
+N_WIDE_STRINGS, W_WIDE_STRINGS = 24_000_000, 96
+# Spark's spark.sql.shuffle.partitions default
+NUM_PARTITIONS = 200
+# Spark's runtime bloom filter: (numBits, expectedNumItems) of the default
+# filter and of the maximum, spark.sql.optimizer.runtime.bloomFilter.*
+BLOOM_FILTERS = ((8_388_608, 1_000_000), (67_108_864, 4_000_000))
 TIMED_RUNS = 15
+# the card every tensor of the script lies on
+CARD = "cuda"
+
+# Arithmetic instructions of the hash kernels' work, counted in the SASS of
+# the built kernels (cuobjdump -sass build/torch_kernels/<source>-*.so,
+# CUDA 12.8): only the instructions that compute a hash from its input,
+# not the loads, the column walk, the branches or the moves, so that the
+# count stays under what a kernel issues and bound_ms under its time.
+MM3_WORD, MM3_FMIX = 6, 8     # mix one 32-bit word; finalise
+MM3_TAIL_BYTE = 8             # extract, sign-extend and mix one tail byte
+XX_VALUE = 41                 # one 8-byte block: seed, round, stripe, fmix
+XX_CHUNK = 48                 # one 32-byte chunk: four rounds
+XX_MERGE = 90                 # set up v1..v4, rotate, sum and merge them
+XX_SEED, XX_LEN = 2, 2        # seed + P5 (strings under 32 bytes); + len
+XX_STRIPE, XX_WORD = 22, 13   # one 8-byte stripe; the 4-byte block
+XX_BYTE, XX_FMIX = 11, 15     # one tail byte; the avalanche
+BLOOM_HASHES = 33             # two hashLong of a row
+BLOOM_PROBE = 20              # one probe: index, remainder, address, bit
+
+KERNELS = (  # name, the TPU kernel it replaces
+    ("grouped_encode", "spark_rapids_jni_tpu/ops/row_mxu.py:513"),
+    ("decode_planes", "spark_rapids_jni_tpu/ops/row_mxu.py:954"),
+    ("murmur3_cols", "spark_rapids_jni_tpu/ops/pallas_kernels.py:535"),
+    ("xxhash64_cols", "spark_rapids_jni_tpu/ops/pallas_kernels.py:671"),
+    ("bloom_might_contain", "spark_rapids_jni_tpu/ops/pallas_kernels.py:830"),
+)
 
 
 def emit(**fields):
@@ -54,14 +113,24 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def median_ms(fn, runs=TIMED_RUNS, warmup=3):
+_L2_FLUSH = []
+
+
+def median_ms(fn, runs=TIMED_RUNS, warmup=3, flush=False):
     """Median over ``runs`` of one call's device time, each call bracketed
-    by its own CUDA events (inputs are far larger than the 50 MB L2, so
-    every call reads them cold)."""
+    by its own CUDA events.  With ``flush``, 512 MiB are written before
+    each call (outside the events): inputs smaller than the 50 MB L2 are
+    read cold too, and the card stays busy while the host queues the call,
+    so that the events time the card's work and not the host's."""
+    if flush and not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(512 << 20, dtype=torch.uint8,
+                                     device=CARD))
     for _ in range(warmup):
         fn()
     pairs = []
     for _ in range(runs):
+        if flush:
+            _L2_FLUSH[0].zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -75,7 +144,7 @@ def median_ms(fn, runs=TIMED_RUNS, warmup=3):
 def copy_ms(nbytes: int) -> float:
     """Device-to-device copy moving ``nbytes`` in all (half read, half
     written): the card's own bandwidth anchor at the kernel's byte count."""
-    src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=CARD)
     dst = torch.empty_like(src)
     return median_ms(lambda: dst.copy_(src))
 
@@ -91,8 +160,378 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     for i in range(0, a.numel(), 1 << 26):
         x = a[i:i + (1 << 26)].to(torch.int64)
         y = b[i:i + (1 << 26)].to(torch.int64)
+        # a difference of two int64 hashes can leave int64: compare halves
+        if a.dtype == torch.int64:
+            x = torch.stack([x >> 32, x & 0xFFFFFFFF])
+            y = torch.stack([y >> 32, y & 0xFFFFFFFF])
         worst = max(worst, int((x - y).abs().max()))
     return worst
+
+
+# ---------------------------------------------------------------------------
+# Bounds of the hash kernels: bytes and arithmetic instructions of the work
+# these inputs need
+# ---------------------------------------------------------------------------
+
+def _valid_count(col) -> int:
+    return int(col.valid_bools().sum())
+
+
+def _col_bytes(col) -> int:
+    """Bytes a kernel must read of a column: its values (a string's bytes up
+    to each valid row's length and its lengths) and its mask."""
+    mask = 0 if col.validity is None else (col.num_rows + 7) // 8
+    if col.dtype.is_string:
+        lens = col.lens.to(torch.int64)
+        return int(lens[col.valid_bools()].sum()) + 4 * col.num_rows + mask
+    return col.num_rows * col.dtype.itemsize + mask
+
+
+def _valid_lens(col) -> torch.Tensor:
+    return col.lens.to(torch.int64)[col.valid_bools()]
+
+
+def _mm3_ops(col) -> int:
+    valid = _valid_count(col)
+    if col.dtype.is_string:
+        lens = _valid_lens(col)
+        return (int(((lens // 4) * MM3_WORD
+                     + (lens % 4) * MM3_TAIL_BYTE).sum())
+                + valid * MM3_FMIX)
+    words = 2 if col.dtype.itemsize == 8 else 1
+    return valid * (words * MM3_WORD + MM3_FMIX)
+
+
+def _xx_ops(col) -> int:
+    valid = _valid_count(col)
+    if not col.dtype.is_string:
+        return valid * XX_VALUE
+    lens = _valid_lens(col)
+    per = (torch.where(lens >= 32, XX_MERGE + (lens // 32) * XX_CHUNK,
+                       XX_SEED)
+           + XX_LEN + ((lens % 32) // 8) * XX_STRIPE
+           + ((lens % 8) >= 4) * XX_WORD + (lens % 4) * XX_BYTE + XX_FMIX)
+    return int(per.sum())
+
+
+def _bloom_ops(col, k: int) -> int:
+    return _valid_count(col) * (BLOOM_HASHES + k * BLOOM_PROBE)
+
+
+def _bound(nbytes: int, instructions: int) -> dict:
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = instructions / PEAK_INSTR_PER_S * 1e3
+    return {"bytes": nbytes, "instructions": instructions,
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _timed(fn, plain_fn, bound: dict, rows: int) -> dict:
+    return {"rows": rows, "ms": median_ms(fn, flush=True),
+            "plain_ms": median_ms(plain_fn, runs=5, warmup=1), **bound}
+
+
+def _hash_timings(cols, label: str, out: dict):
+    """Time both hash kernels over ``cols`` into ``out`` under ``label``."""
+    from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
+    n = cols[0].num_rows
+    nbytes = sum(_col_bytes(c) for c in cols)
+    out[f"murmur3_cols{label}"] = _timed(
+        lambda: hk.murmur3_cols(cols, 42),
+        lambda: hk.murmur3_cols_plain(cols, 42),
+        _bound(nbytes + 4 * n, sum(_mm3_ops(c) for c in cols)), n)
+    out[f"xxhash64_cols{label}"] = _timed(
+        lambda: hk.xxhash64_cols(cols, 42),
+        lambda: hk.xxhash64_cols_plain(cols, 42),
+        _bound(nbytes + 8 * n, sum(_xx_ops(c) for c in cols)), n)
+
+
+# ---------------------------------------------------------------------------
+# The hash and bloom paths
+# ---------------------------------------------------------------------------
+
+def _read_path(kernels, run):
+    """Run one path with every launch count set to 0 just before it, and
+    return the counts read just after."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    result = run()
+    torch.cuda.synchronize()
+    return result, dict(kernels.launches)
+
+
+def _hold_hash(name, got, cols, seed, errs, what):
+    """A hash kernel's result ``got`` over ``cols`` against its plain
+    version."""
+    from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
+    plain = getattr(hk, f"{name}_plain")(cols, seed)
+    errs[name] = max(errs[name], max_abs_err(got, plain))
+    check(torch.equal(got, plain), f"{name} kernel != plain version: {what}")
+
+
+def _hold_hashes(cols, seed, errs, what):
+    """Both hash kernels against their plain versions over ``cols``."""
+    from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
+    for name in ("murmur3_cols", "xxhash64_cols"):
+        _hold_hash(name, getattr(hk, name)(cols, seed), cols, seed, errs,
+                   what)
+
+
+def phase_hash_partition(table, batches, dtypes, errs, timing):
+    """Path 1: decode each 4M batch to its backing (K2), then Spark's hash
+    partition ids of its INT32 column 2 and INT16 column 4 (K6)."""
+    from spark_rapids_jni_tpu_torch.ops import (
+        DEFAULT_SEED, convert_from_rows_grouped, hash_partition_ids, pmod,
+    )
+    from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    from spark_rapids_jni_tpu_torch.table import slice_table
+
+    def run():
+        out = []
+        for b in batches:
+            g = convert_from_rows_grouped(b, dtypes)
+            keys = [g.column(2), g.column(4)]
+            out.append((keys, hash_partition_ids(keys, NUM_PARTITIONS)))
+        return out
+
+    parts, launches = _read_path(kernels, run)
+    check(launches["decode_planes"] == len(batches)
+          and launches["murmur3_cols"] == len(batches),
+          f"path 1 launches {launches}")
+    start = 0
+    for b, (keys, ids) in zip(batches, parts):
+        plain = pmod(hk.murmur3_cols_plain(keys, DEFAULT_SEED),
+                     NUM_PARTITIONS)
+        errs["murmur3_cols"] = max(errs["murmur3_cols"],
+                                   max_abs_err(ids, plain))
+        check(torch.equal(ids, plain), f"partition ids != plain version at "
+                                       f"batch start {start}")
+        orig = slice_table(table, start, start + b.num_rows)
+        want = hash_partition_ids([orig.column(2), orig.column(4)],
+                                  NUM_PARTITIONS)
+        check(torch.equal(ids, want), f"partition ids of the decoded keys "
+                                      f"!= the original keys' at {start}")
+        check(int(ids.min()) >= 0 and int(ids.max()) < NUM_PARTITIONS,
+              "a partition id outside [0, 200)")
+        start += b.num_rows
+    counts = torch.bincount(torch.cat([ids for _, ids in parts]).long(),
+                            minlength=NUM_PARTITIONS)
+    _hash_timings(parts[0][0], "_partition_keys", timing)
+    emit(phase="hash_partition_4m", rows=N_4M,
+         batch_rows=[b.num_rows for b in batches],
+         num_partitions=NUM_PARTITIONS, launches=launches,
+         equal_plain=True, equal_original_keys=True,
+         rows_per_partition_min_max=[int(counts.min()), int(counts.max())])
+    return launches
+
+
+def phase_hash_keys(errs, timing):
+    """Path 2: xxhash64 and murmur3 over 8 INT64 keys, 25% nulls, 4M rows
+    (the shape of the JAX package's bench.py:623-628)."""
+    from spark_rapids_jni_tpu_torch import INT64
+    from spark_rapids_jni_tpu_torch.ops import (
+        DEFAULT_SEED, kernels, murmur3_hash, xxhash64,
+    )
+    from spark_rapids_jni_tpu_torch.utils import random_table
+    keys = random_table([INT64] * 8, N_4M, seed=3, null_probability=0.25)
+    (xx, mm3), launches = _read_path(kernels, lambda: (xxhash64(keys),
+                                                       murmur3_hash(keys)))
+    check(launches["xxhash64_cols"] == 1 and launches["murmur3_cols"] == 1,
+          f"path 2 launches {launches}")
+    for name, got in (("xxhash64_cols", xx), ("murmur3_cols", mm3)):
+        _hold_hash(name, got, keys.columns, DEFAULT_SEED, errs,
+                   "path 2, 8 INT64 keys")
+    _hash_timings(keys.columns, "", timing)
+    emit(phase="hash_keys_4m", rows=N_4M, columns=8, launches=launches,
+         equal_plain=True)
+    return launches
+
+
+def phase_hash_strings(errs, timing):
+    """Path 3: murmur3 and xxhash64 over [padded string, INT64], 4M rows,
+    lengths uniform in 0..64, 25% nulls (bench.py:693-706's shape)."""
+    from spark_rapids_jni_tpu_torch import INT64
+    from spark_rapids_jni_tpu_torch.ops import (
+        DEFAULT_SEED, kernels, murmur3_hash, xxhash64,
+    )
+    from spark_rapids_jni_tpu_torch.utils import random_strings, random_table
+    cols = [random_strings(N_4M, 64, seed=4, null_probability=0.25),
+            random_table([INT64], N_4M, seed=5).columns[0]]
+    high = int((cols[0].chars2d >= 0x80).sum())
+    check(high > 0, "no string byte >= 0x80")
+    (mm3, xx), launches = _read_path(kernels, lambda: (murmur3_hash(cols),
+                                                       xxhash64(cols)))
+    check(launches["xxhash64_cols"] == 1 and launches["murmur3_cols"] == 1,
+          f"path 3 launches {launches}")
+    for name, got in (("murmur3_cols", mm3), ("xxhash64_cols", xx)):
+        _hold_hash(name, got, cols, DEFAULT_SEED, errs,
+                   "path 3, strings + INT64")
+    _hash_timings(cols, "_strings", timing)
+    emit(phase="hash_strings_4m", rows=N_4M, width=cols[0].chars2d.shape[1],
+         bytes_at_or_above_0x80=high, launches=launches, equal_plain=True)
+    return launches
+
+
+def _distinct_keys(n: int, salt: int) -> np.ndarray:
+    """n distinct int64 keys: 1..n times an odd constant, modulo 2^64 (a
+    bijection), plus a salt."""
+    k = np.arange(1, n + 1, dtype=np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+    return (k + np.uint64(salt)).view(np.int64)
+
+
+def _probe_rows(build: np.ndarray, n: int, seed: int):
+    """n INT64 probe values, 25% null; half of the non-null ones from the
+    build keys, the rest random."""
+    rng = np.random.default_rng(seed)
+    from_build = rng.random(n) < 0.5
+    vals = np.where(from_build, build[rng.integers(0, len(build), n)],
+                    rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64))
+    return vals, rng.random(n) >= 0.25, from_build
+
+
+def _hold_probe(bf, col, got, errs, what):
+    """The probe kernel's answer against its plain version and the host
+    probe."""
+    from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
+    words = torch.from_numpy(bf.words.view(np.int64)).to(CARD)
+    plain = hk.bloom_might_contain_plain(words, col, bf.num_hash_functions)
+    errs["bloom_might_contain"] = max(errs["bloom_might_contain"],
+                                      max_abs_err(got.to(torch.uint8),
+                                                  plain.to(torch.uint8)))
+    check(torch.equal(got, plain), f"bloom kernel != plain version: {what}")
+    host = torch.from_numpy(bf.might_contain(col)).to(CARD)
+    check(torch.equal(got, host), f"bloom kernel != host probe: {what}")
+    return words
+
+
+def phase_bloom_probe(errs, timing):
+    """Path 4: Spark's runtime filter, built on the host from distinct
+    INT64 keys, probed by 4M INT64 rows on the card."""
+    from spark_rapids_jni_tpu_torch import INT64
+    from spark_rapids_jni_tpu_torch.ops import (
+        SparkBloomFilter, kernels, might_contain_device,
+    )
+    from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
+    from spark_rapids_jni_tpu_torch.table import Column
+    total = {}
+    for i, (num_bits, items) in enumerate(BLOOM_FILTERS):
+        # Spark's optimalNumOfHashFunctions(expectedNumItems, numBits)
+        k = max(1, round(num_bits / items * math.log(2)))
+        bf = SparkBloomFilter(k, np.zeros(num_bits // 64, np.uint64))
+        build = _distinct_keys(items, salt=i)
+        t0 = time.perf_counter()
+        bf.put(Column.from_numpy(build, INT64, device="cpu"))
+        put_s = time.perf_counter() - t0
+        vals, valid, from_build = _probe_rows(build, N_4M, seed=10 + i)
+        col = Column.from_numpy(vals, INT64, valid, device=CARD)
+        got, launches = _read_path(kernels,
+                                   lambda: might_contain_device(bf, col))
+        check(launches["bloom_might_contain"] == 1,
+              f"path 4 launches {launches}")
+        for name, v in launches.items():
+            total[name] = total.get(name, 0) + v
+        words = _hold_probe(bf, col, got, errs, f"{num_bits} bits")
+        keep = torch.from_numpy(from_build & valid).to(CARD)
+        check(bool(got[keep].all()), "a build key probed False")
+        check(not bool(got[~torch.from_numpy(valid).to(CARD)].any()),
+              "a null row probed True")
+        others = torch.from_numpy(~from_build & valid).to(CARD)
+        fpp = float(got[others].float().mean())
+        label = "" if i == 0 else f"_{num_bits}_bits"
+        timing[f"bloom_might_contain{label}"] = _timed(
+            lambda: hk.bloom_might_contain(words, col, k),
+            lambda: hk.bloom_might_contain_plain(words, col, k),
+            _bound(_col_bytes(col) + N_4M + 8 * len(bf.words),
+                   _bloom_ops(col, k)), N_4M)
+        emit(phase="bloom_probe_4m", rows=N_4M, num_bits=num_bits, k=k,
+             build_keys=items, put_seconds=put_s, launches=launches,
+             equal_plain=True, equal_host=True, build_keys_all_true=True,
+             nulls_false=True, false_positive_rate=fpp)
+    return total
+
+
+def phase_hash_offsets_64bit(errs):
+    """64-bit offsets: a padded string column of 24M rows of 96 bytes
+    (2.3 GB of chars, row offsets past 2^31 bytes) through both hash
+    kernels, and a filter of 2^31 + 64 bits (which the JAX package sends to
+    the host) through the bloom kernel."""
+    from spark_rapids_jni_tpu_torch import INT64
+    from spark_rapids_jni_tpu_torch.ops import (
+        SparkBloomFilter, might_contain_device,
+    )
+    from spark_rapids_jni_tpu_torch.table import Column
+    from spark_rapids_jni_tpu_torch.utils import random_strings
+    torch.cuda.reset_peak_memory_stats()
+    strs = random_strings(N_WIDE_STRINGS, W_WIDE_STRINGS, seed=6)
+    chars_bytes = strs.chars2d.numel()
+    check(chars_bytes > 1 << 31, "the string phase does not pass 2^31")
+    _hold_hashes([strs], 42, errs, "24M x 96 strings")
+    del strs
+    torch.cuda.empty_cache()
+    bf = SparkBloomFilter(3, np.zeros((1 << 25) + 1, np.uint64))
+    build = _distinct_keys(N_1M, salt=7)
+    bf.put(Column.from_numpy(build, INT64, device="cpu"))
+    vals, valid, from_build = _probe_rows(build, N_1M, seed=12)
+    col = Column.from_numpy(vals, INT64, valid, device=CARD)
+    got = might_contain_device(bf, col)
+    _hold_probe(bf, col, got, errs, "2^31 + 64 bits")
+    check(bool(got[torch.from_numpy(from_build & valid).to(CARD)].all()),
+          "a build key probed False in the wide filter")
+    emit(phase="hash_offsets_64bit", string_rows=N_WIDE_STRINGS,
+         string_width=W_WIDE_STRINGS, chars_bytes=chars_bytes,
+         bloom_num_bits=bf.num_bits, bloom_rows=N_1M, equal_plain=True,
+         bloom_equal_host=True,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def phase_hash_edges(errs):
+    """Each new kernel against its plain version at odd sizes, every null
+    mode, every fixed type, special floats, every string length 0..W, two
+    seeds, and bloom k in {1, 6, 12} over every long-castable type."""
+    from spark_rapids_jni_tpu_torch import (
+        BOOL8, DATE32, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64,
+        TIMESTAMP64, UINT8, UINT16, UINT32, UINT64, decimal32, decimal64,
+    )
+    from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
+    from spark_rapids_jni_tpu_torch.utils import (
+        random_bitset, random_table, special_floats, strings_with_lengths,
+    )
+    fixed = [INT64, FLOAT64, UINT64, INT32, UINT32, FLOAT32, INT16, UINT16,
+             INT8, UINT8, BOOL8, decimal32(2), decimal64(-1), DATE32,
+             TIMESTAMP64]
+    bloom_types = [INT8, INT16, INT32, DATE32, TIMESTAMP64, INT64]
+    bitsets = {k: random_bitset(131_072, 0.5 ** (1 / k), seed=k)
+               for k in (1, 6, 12)}
+    cases = 0
+    for n in (1, 31, 6 * 1024 + 557):
+        for nulls in (None, 0.0, 1.0, 0.25):
+            t = random_table(fixed, n, seed=n, null_probability=nulls)
+            strings = [strings_with_lengths(
+                (torch.arange(n, device=CARD) % (W + 1)).to(torch.int32),
+                W, seed=W, null_probability=nulls)
+                for W in (0, 4, 12, 36, 68)]
+            col_sets = ([[c] for c in t.columns] + [list(t.columns)]
+                        + [[s] for s in strings]
+                        + [strings + [t.columns[0]]]
+                        + [list(special_floats(n).columns)])
+            for seed in (42, 7):
+                for cols in col_sets:
+                    _hold_hashes(cols, seed, errs,
+                                 f"n={n} nulls={nulls} seed={seed} "
+                                 f"{[c.dtype for c in cols]}")
+                    cases += 2
+            for k, words in bitsets.items():
+                for col in random_table(bloom_types, n, seed=n,
+                                        null_probability=nulls).columns:
+                    got = hk.bloom_might_contain(words, col, k)
+                    plain = hk.bloom_might_contain_plain(words, col, k)
+                    check(torch.equal(got, plain),
+                          f"bloom n={n} nulls={nulls} k={k} {col.dtype}")
+                    check(not bool(got[~col.valid_bools()].any()),
+                          "a null row probed True")
+                    cases += 1
+    emit(phase="hash_edges", cases=cases)
 
 
 def main():
@@ -114,6 +553,7 @@ def main():
     )
     from spark_rapids_jni_tpu_torch.utils import cycle_dtypes, random_table
 
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     emit(phase="device", nvidia_smi=smi,
          kind=torch.cuda.get_device_name(0),
@@ -133,9 +573,15 @@ def main():
     wd = row_mxu._data_words(layout)
     w = row_mxu._inverse_plan(layout)[0].num_words
     check((rs, wd, w) == (1008, 214, 221), f"layout {(rs, wd, w)}")
-    errs = {"grouped_encode": 0, "decode_planes": 0}
+    errs = dict.fromkeys(kernels.launches, 0)
+    # launches of each kernel on its paths, summed over them
+    path_launches = dict.fromkeys(kernels.launches, 0)
 
-    # -- the main path, 1M rows: encode then decode, counts read around it
+    def add_launches(counts):
+        for name, v in counts.items():
+            path_launches[name] += v
+
+    # -- the row-conversion path, 1M rows: encode then decode
     table = random_table(dtypes, N_1M, seed=0, null_probability=0.25)
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -143,8 +589,11 @@ def main():
     decoded = convert_from_rows(batches[0], dtypes)
     torch.cuda.synchronize()
     main_launches = dict(kernels.launches)
-    check(all(v > 0 for v in main_launches.values()),
-          f"a kernel of the main path never launched: {main_launches}")
+    check(main_launches["grouped_encode"] > 0
+          and main_launches["decode_planes"] > 0,
+          f"a kernel of the row-conversion path never launched: "
+          f"{main_launches}")
+    add_launches(main_launches)
 
     blob = batches[0].data
     check(len(batches) == 1 and tuple(blob.shape) == (N_1M, rs),
@@ -200,9 +649,11 @@ def main():
              lambda: kernels.decode_planes_plain(blob, layout),
              dec_bytes)):
         timing[name] = {
-            "ms": median_ms(fn), "plain_ms": median_ms(plain_fn, runs=10),
+            "rows": N_1M, "ms": median_ms(fn),
+            "plain_ms": median_ms(plain_fn, runs=10),
             "copy_ms": copy_ms(nbytes), "bytes": nbytes,
-            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
     # the entry points around the kernels: the pack into the backing, and
     # the per-column extraction after the decode
     end_to_end = {
@@ -212,7 +663,6 @@ def main():
                                         runs=10),
         "convert_from_rows_ms": median_ms(
             lambda: convert_from_rows(batches[0], dtypes), runs=10)}
-    emit(phase="timing", rows=N_1M, runs=TIMED_RUNS, **timing, **end_to_end)
     del table, batches, blob, gc
 
     # -- 4M rows: two batches under the grouped policy, each kernel against
@@ -251,19 +701,33 @@ def main():
     emit(phase="multibatch_4m", rows=N_4M, batch_rows=sizes,
          batch_bytes=[b.data.numel() for b in batches], equal_plain=True,
          roundtrip_bit_exact=True)
-    del table, batches, gc, b
+    del gc
+
+    # -- the hash and bloom paths
+    add_launches(phase_hash_partition(table, batches, dtypes, errs, timing))
+    del table, batches, b
     torch.cuda.empty_cache()
+    add_launches(phase_hash_keys(errs, timing))
+    torch.cuda.empty_cache()
+    add_launches(phase_hash_strings(errs, timing))
+    torch.cuda.empty_cache()
+    add_launches(phase_bloom_probe(errs, timing))
+    torch.cuda.empty_cache()
+    for name in ("murmur3_cols", "xxhash64_cols", "bloom_might_contain"):
+        check(path_launches[name] > 0,
+              f"{name} never launched on its paths: {path_launches}")
 
     # -- 64-bit offsets: random planes of N_WIDE rows, so that the index of
     # the last data plane's words (read by the encode) and of the last
     # decoded plane's words (written by the decode) pass 2^31 elements, and
     # the blob passes 2^31 bytes; each kernel against its plain version
-    gen = torch.Generator(device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=CARD)
     gen.manual_seed(2)
     planes = torch.randint(0, 256, (wd, 4 * N_WIDE), dtype=torch.uint8,
-                           device="cuda", generator=gen).view(torch.int32)
+                           device=CARD, generator=gen).view(torch.int32)
     vmask = torch.randint(0, 256, (layout.num_columns, N_WIDE // 8),
-                          dtype=torch.uint8, device="cuda", generator=gen)
+                          dtype=torch.uint8, device=CARD, generator=gen)
     read_max = (wd - 1) * N_WIDE + N_WIDE - 1
     written_max = (w - 1) * N_WIDE + N_WIDE - 1
     check(min(read_max, written_max, N_WIDE * rs) > (1 << 31),
@@ -283,8 +747,11 @@ def main():
     check(torch.equal(vk, vmask), "wide decoded masks != input masks")
     emit(phase="offsets_64bit", rows=N_WIDE, max_plane_index_read=read_max,
          max_plane_index_written=written_max, blob_bytes=N_WIDE * rs,
-         equal_plain=True)
+         equal_plain=True,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
     del rows_k, pk, vk, pp, vp, vmask
+    torch.cuda.empty_cache()
+    phase_hash_offsets_64bit(errs)
     torch.cuda.empty_cache()
 
     # -- edges: every fixed type, odd sizes, all null patterns, odd starts
@@ -309,7 +776,7 @@ def main():
                 cases += 1
             rows = kernels.grouped_encode(eg.planes, eg.vmask, elayout, 0, n)
             wide = torch.zeros((n, elayout.fixed_row_size + 24),
-                               dtype=torch.uint8, device="cuda")
+                               dtype=torch.uint8, device=CARD)
             wide[:, :elayout.fixed_row_size] = rows
             for r2d in (rows, wide):
                 pk, vk = kernels.decode_planes(r2d, elayout)
@@ -323,20 +790,23 @@ def main():
             back = row_mxu.GroupedColumns(pk, vk, elayout).to_table()
             assert_tables_equivalent(t, back, check_nulls=False)
     emit(phase="edges", cases=cases, max_abs_err=errs)
+    phase_hash_edges(errs)
 
+    for name, _ in KERNELS:
+        timing[name]["launches"] = path_launches[name]
+    emit(phase="timing", runs=TIMED_RUNS, **timing, **end_to_end,
+         seconds=time.perf_counter() - t_start)
     kernel_lines = []
-    for name, replaces in (
-            ("grouped_encode", "spark_rapids_jni_tpu/ops/row_mxu.py:513"),
-            ("decode_planes", "spark_rapids_jni_tpu/ops/row_mxu.py:954")):
+    for name, replaces in KERNELS:
         tm = timing[name]
         kernel_lines.append({
             "name": name, "route": "cuda",
             "source": ("spark_rapids_jni_tpu_torch/csrc/"
                        + kernels.SOURCES[name]),
-            "replaces": replaces, "launches": main_launches[name],
+            "replaces": replaces, "launches": path_launches[name],
             "max_abs_err": errs[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-            "bound_by": "bytes", "library_ms": None})
+            "bound_by": tm["bound_by"], "library_ms": None})
     print(smi, flush=True)
     emit(kernels=kernel_lines)
     emit(ok=True, device={"platform": "gpu",

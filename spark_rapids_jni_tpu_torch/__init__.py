@@ -3,13 +3,20 @@
 It runs on one NVIDIA Hopper card (sm_90a).  The JAX package beside it is
 the reference; this package imports neither JAX nor that package.
 
-- ``table``: fixed-width ``Column``/``Table`` containers as torch tensors.
+- ``table``: ``Column``/``Table`` containers as torch tensors, fixed-width
+  and dense-padded string columns.
 - ``ops.row_conversion``: JCUDF row-format <-> column conversion, the
   flagship op (reference ``src/main/cpp/src/row_conversion.cu``).
 - ``ops.row_mxu``: word plans and the plane-major table backing.
-- ``ops.kernels``: the hand-written CUDA kernels (``csrc/``), their
-  wrappers, plain versions and build.
-- ``utils.datagen``: seeded random fixed-width tables, made on the device.
+- ``ops.hashing``: Spark's murmur3 and xxhash64 over columns, and hash
+  partitioning (``hash_partition_ids``).
+- ``ops.spark_bloom``: Spark's wire-compatible bloom filter and its probe
+  on the device (``might_contain_device``).
+- ``ops.kernels``: the build of the hand-written CUDA kernels (``csrc/``)
+  and the row-conversion kernels' wrappers and plain versions;
+  ``ops.hash_kernels``: those of the hash and bloom kernels.
+- ``utils.datagen``: seeded random fixed-width tables and padded string
+  columns, made on the device.
 - ``interop``: tables and backings to and from numpy, to hold the port
   against the JAX package on the same data.
 

@@ -1,11 +1,13 @@
 """Carry tables and plane-major backings across from the JAX package, as numpy.
 
 Both packages compute on the same data only if it crosses bit for bit.  The
-JAX package's tables are handed over as numpy arrays (one
-``(dtype name, values, packed validity or None)`` triple per column, the
-name being ``repr`` of the column type, which both packages print alike),
-and its ``GroupedColumns`` as uint32 planes plus packed masks.  Nothing here
-imports JAX: the caller does the ``np.asarray``.
+JAX package's tables are handed over as numpy arrays, one tuple per column:
+``(dtype name, values, packed validity or None)`` for a fixed-width column
+and ``("string", chars2d, lens, packed validity or None)`` for a
+dense-padded string column, the name being ``repr`` of the column type,
+which both packages print alike.  Its ``GroupedColumns`` cross as uint32
+planes plus packed masks.  Nothing here imports JAX: the caller does the
+``np.asarray``.
 """
 
 from __future__ import annotations
@@ -21,28 +23,51 @@ from spark_rapids_jni_tpu_torch.table import (
 from spark_rapids_jni_tpu_torch.ops.row_layout import compute_row_layout
 from spark_rapids_jni_tpu_torch.ops.row_mxu import GroupedColumns
 
-ColumnArrays = Tuple[str, np.ndarray, Optional[np.ndarray]]
+ColumnArrays = Union[Tuple[str, np.ndarray, Optional[np.ndarray]],
+                     Tuple[str, np.ndarray, np.ndarray, Optional[np.ndarray]]]
 
 
 def _dtype(d: Union[str, DType]) -> DType:
     return d if isinstance(d, DType) else dtype_from_name(d)
 
 
+def _column(arrays: ColumnArrays, dev: torch.device) -> Column:
+    name = arrays[0]
+    if not _dtype(name).is_string:
+        _, values, validity = arrays
+        return Column.from_packed_numpy(values, _dtype(name), validity, dev)
+    if len(arrays) != 4:
+        raise NotImplementedError(
+            "only dense-padded string columns (chars2d, lens) cross; "
+            "Arrow-layout strings wait for the strings slice of the port")
+    _, chars2d, lens, validity = arrays
+    if validity is not None:
+        validity = torch.from_numpy(np.array(validity, np.uint8)).to(dev)
+    return Column.padded_strings(
+        torch.from_numpy(np.array(chars2d, np.uint8)).to(dev),
+        torch.from_numpy(np.array(lens, np.int32)).to(dev), validity)
+
+
 def table_from_numpy_columns(columns: Sequence[ColumnArrays],
                              device=None) -> Table:
-    """A port table from ``(dtype name, values [n], packed validity
-    uint8 [ceil(n/8)] or None)`` triples."""
+    """A port table from per-column tuples: ``(dtype name, values [n],
+    packed validity uint8 [ceil(n/8)] or None)``, or ``("string", chars2d
+    uint8 [n, W], lens int32 [n], packed validity or None)``."""
     dev = resolve_device(device)
-    return Table(tuple(Column.from_packed_numpy(values, _dtype(name),
-                                                validity, dev)
-                       for name, values, validity in columns))
+    return Table(tuple(_column(c, dev) for c in columns))
 
 
 def table_to_numpy_columns(table: Table) -> List[ColumnArrays]:
     """Inverse of :func:`table_from_numpy_columns`."""
-    return [(repr(c.dtype), c.to_numpy(),
-             None if c.validity is None else c.validity.cpu().numpy())
-            for c in table.columns]
+    out = []
+    for c in table.columns:
+        validity = None if c.validity is None else c.validity.cpu().numpy()
+        if c.dtype.is_string:
+            out.append((repr(c.dtype), c.chars2d.cpu().numpy(),
+                        c.lens.cpu().numpy(), validity))
+        else:
+            out.append((repr(c.dtype), c.to_numpy(), validity))
+    return out
 
 
 def grouped_from_numpy(planes: np.ndarray, vmask: np.ndarray,

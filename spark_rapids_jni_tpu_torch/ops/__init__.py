@@ -1,4 +1,5 @@
-"""Row conversion ops of the PyTorch port (fixed-width tables)."""
+"""Ops of the PyTorch port: row conversion (fixed-width tables), Spark
+hashing and hash partitioning, and the Spark bloom filter."""
 
 from spark_rapids_jni_tpu_torch.ops.row_layout import (  # noqa: F401
     JCUDF_ROW_ALIGNMENT, MAX_BATCH_BYTES, MAX_ROW_SIZE, RowLayout,
@@ -14,4 +15,10 @@ from spark_rapids_jni_tpu_torch.ops.row_conversion import (  # noqa: F401
     convert_to_rows_grouped,
     plan_fixed_batches,
     plan_grouped_batches,
+)
+from spark_rapids_jni_tpu_torch.ops.hashing import (  # noqa: F401
+    DEFAULT_SEED, hash_partition_ids, murmur3_hash, pmod, xxhash64,
+)
+from spark_rapids_jni_tpu_torch.ops.spark_bloom import (  # noqa: F401
+    SparkBloomFilter, might_contain_device,
 )

@@ -1,5 +1,5 @@
-"""The row-conversion kernels: hand-written CUDA for Hopper, their wrappers,
-their plain PyTorch versions and their build.
+"""The build of every hand-written CUDA kernel of the port, and the
+row-conversion kernels' wrappers and plain PyTorch versions.
 
 - :func:`grouped_encode` (``csrc/row_encode.cu``) replaces the TPU kernel
   ``spark_rapids_jni_tpu/ops/row_mxu.py::_grouped_encode_kernel``: the
@@ -7,6 +7,9 @@ their plain PyTorch versions and their build.
 - :func:`decode_planes` (``csrc/row_decode.cu``) replaces
   ``row_mxu.py::_fused_decode_kernel``: JCUDF rows to word planes and packed
   validity.
+- The hash and bloom-probe kernels (``csrc/murmur3.cu``,
+  ``csrc/xxhash64.cu``, ``csrc/bloom_probe.cu``) build here too; their
+  wrappers and plain versions are in :mod:`.hash_kernels`.
 
 A wrapper runs the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; there is no fallback.  Each launch
@@ -37,7 +40,8 @@ from spark_rapids_jni_tpu_torch.ops import word_plan
 from spark_rapids_jni_tpu_torch.ops.row_layout import RowLayout
 
 # launches of each kernel since the last reset_launches()
-launches = {"grouped_encode": 0, "decode_planes": 0}
+launches = {"grouped_encode": 0, "decode_planes": 0, "murmur3_cols": 0,
+            "xxhash64_cols": 0, "bloom_might_contain": 0}
 
 
 def reset_launches():
@@ -51,7 +55,9 @@ def reset_launches():
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = {"grouped_encode": "row_encode.cu", "decode_planes": "row_decode.cu"}
+SOURCES = {"grouped_encode": "row_encode.cu", "decode_planes": "row_decode.cu",
+           "murmur3_cols": "murmur3.cu", "xxhash64_cols": "xxhash64.cu",
+           "bloom_might_contain": "bloom_probe.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -72,23 +78,35 @@ def _nvcc() -> str:
 def _library_path(name: str) -> Path:
     src = CSRC / SOURCES[name]
     digest = hashlib.sha256()
-    for part in (src, CSRC / "launch.cuh"):
+    for part in (src, *sorted(CSRC.glob("*.cuh"))):
         digest.update(part.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
+_VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# each kernel's C entry point and its argument types
+_ENTRY = {
+    "grouped_encode": ("srj_grouped_encode", [
+        _VP, _I64, _VP, _I64, _VP, _I32, _I32, _I32, _I32, _I64, _I64, _VP,
+        _I32, _VP]),
+    "decode_planes": ("srj_decode_planes", [
+        _VP, _I64, _I32, _VP, _I32, _I32, _I32, _I64, _VP, _VP, _I64, _I32,
+        _VP]),
+    "murmur3_cols": ("srj_murmur3_cols", [
+        _VP, _I32, _I64, ctypes.c_uint32, _VP, _I32, _VP]),
+    "xxhash64_cols": ("srj_xxhash64_cols", [
+        _VP, _I32, _I64, ctypes.c_uint64, _VP, _I32, _VP]),
+    "bloom_might_contain": ("srj_bloom_might_contain", [
+        _VP, _I64, _I32, _VP, _I32, _VP, _I64, _VP, _I32, _VP]),
+}
+
+
 def _declare(name: str, lib: ctypes.CDLL):
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    if name == "grouped_encode":
-        lib.srj_grouped_encode.argtypes = [
-            vp, i64, vp, i64, vp, i32, i32, i32, i32, i64, i64, vp, i32, vp]
-        lib.srj_grouped_encode.restype = i32
-    else:
-        lib.srj_decode_planes.argtypes = [
-            vp, i64, i32, vp, i32, i32, i32, i64, vp, vp, i64, i32, vp]
-        lib.srj_decode_planes.restype = i32
-    lib.srj_cuda_error_string.argtypes = [i32]
+    entry, argtypes = _ENTRY[name]
+    getattr(lib, entry).argtypes = argtypes
+    getattr(lib, entry).restype = _I32
+    lib.srj_cuda_error_string.argtypes = [_I32]
     lib.srj_cuda_error_string.restype = ctypes.c_char_p
 
 
@@ -131,6 +149,19 @@ def build_kernels() -> Dict[str, ctypes.CDLL]:
 def build_log(name: str) -> str:
     """``nvcc``'s output for kernel ``name`` (after :func:`build_kernels`)."""
     return _library_path(name).with_suffix(".log").read_text()
+
+
+def stream_of(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, *args):
+    """Call kernel ``name``'s C entry point (its library built at first
+    use), raise on a non-zero ``cudaError_t`` and count the launch."""
+    lib = build_kernels()[name]
+    _raise_on(getattr(lib, _ENTRY[name][0])(*args), lib, name)
+    launches[name] += 1
 
 
 def _raise_on(rc: int, lib: ctypes.CDLL, name: str):
@@ -255,20 +286,16 @@ def grouped_encode(planes: torch.Tensor, vmask: torch.Tensor,
         return grouped_encode_plain(planes, vmask, layout, start, size)
     _check(planes.device.type == "cuda",
            f"no kernel for device {planes.device}")
-    lib = build_kernels()["grouped_encode"]
     rs = layout.fixed_row_size
     out = torch.empty((size, rs), dtype=torch.uint8, device=planes.device)
     if size:
         byte_map = _device_map(encode_byte_map, layout, planes.device)
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        rc = lib.srj_grouped_encode(
-            planes.data_ptr(), planes.shape[1], vmask.data_ptr(),
-            vmask.shape[1], byte_map.data_ptr(),
-            word_plan._data_words(layout), layout.num_columns,
-            layout.validity_bytes, rs, start, size, out.data_ptr(),
-            planes.device.index, stream)
-        _raise_on(rc, lib, "grouped_encode")
-        launches["grouped_encode"] += 1
+        launch("grouped_encode",
+               planes.data_ptr(), planes.shape[1], vmask.data_ptr(),
+               vmask.shape[1], byte_map.data_ptr(),
+               word_plan._data_words(layout), layout.num_columns,
+               layout.validity_bytes, rs, start, size, out.data_ptr(),
+               planes.device.index, stream_of(planes.device))
     return out
 
 
@@ -326,7 +353,6 @@ def decode_planes(rows2d: torch.Tensor, layout: RowLayout
     _check(stride % 4 == 0 and rows2d.data_ptr() % 4 == 0,
            "the decode kernel reads 4-byte words: row stride and start "
            "must be 4-byte aligned")
-    lib = build_kernels()["decode_planes"]
     n = rows2d.shape[0]
     num_words = word_plan._inverse_plan(layout)[0].num_words
     dev = rows2d.device
@@ -335,12 +361,9 @@ def decode_planes(rows2d: torch.Tensor, layout: RowLayout
                         dtype=torch.uint8, device=dev)
     if n:
         word_map = _device_map(decode_word_map, layout, dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.srj_decode_planes(
-            rows2d.data_ptr(), stride, _decode_load_bytes(layout),
-            word_map.data_ptr(), num_words, layout.num_columns,
-            layout.validity_offset, n, planes.data_ptr(), vmask.data_ptr(),
-            vmask.shape[1], dev.index, stream)
-        _raise_on(rc, lib, "decode_planes")
-        launches["decode_planes"] += 1
+        launch("decode_planes",
+               rows2d.data_ptr(), stride, _decode_load_bytes(layout),
+               word_map.data_ptr(), num_words, layout.num_columns,
+               layout.validity_offset, n, planes.data_ptr(),
+               vmask.data_ptr(), vmask.shape[1], dev.index, stream_of(dev))
     return planes, vmask

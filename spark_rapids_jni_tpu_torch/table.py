@@ -1,10 +1,16 @@
-"""Columnar containers for fixed-width tables, as PyTorch tensors.
+"""Columnar containers for tables, as PyTorch tensors.
 
-The PyTorch counterpart of ``spark_rapids_jni_tpu.table`` (fixed-width part):
+The PyTorch counterpart of ``spark_rapids_jni_tpu.table`` (fixed-width and
+dense-padded string columns):
 
 - A :class:`Column` holds ``data``, a 1-D tensor of the column's own torch
   dtype (64-bit columns are native ``int64``/``float64``/``uint64``
   tensors), and an optional packed ``validity`` bitmask.
+- A string column is dense-padded: ``chars2d`` uint8 ``[n, W]`` (``W`` a
+  multiple of 4, zeros past each length) and int32 ``lens [n]``; its
+  ``data`` is an empty placeholder, as in the JAX package.  Arrow-layout
+  strings (offsets + flat chars) and width-capped columns with their host
+  tail wait for the strings slice of the port.
 - Validity is a ``uint8 [ceil(n/8)]`` LSB-first bitmask over rows: byte
   ``r // 8``, bit ``r % 8``; ``1`` means valid.  It is byte-identical to the
   JAX package's mask and to the bit order the JCUDF row format uses.
@@ -157,6 +163,27 @@ def bits_view(data: torch.Tensor) -> torch.Tensor:
     return data.view(BITS_DTYPES[data.element_size()])
 
 
+def bytes2d_to_words(b: torch.Tensor) -> torch.Tensor:
+    """uint8 ``[n, W]`` (``W % 4 == 0``) -> int32 ``[n, W // 4]``
+    little-endian words: the bits of the JAX package's uint32 words (torch
+    has few ``uint32`` operations, so words travel as ``int32``)."""
+    if b.shape[1] % 4:
+        raise ValueError(f"byte width {b.shape[1]} is not a multiple of 4")
+    if b.shape[1] == 0:
+        return torch.zeros((b.shape[0], 0), dtype=torch.int32,
+                           device=b.device)
+    return b.contiguous().view(torch.int32)
+
+
+def _padded_width(max_len: int, pad_to: Optional[int]) -> int:
+    """Padded char-matrix width: caller override or max length, rounded up
+    to a multiple of 4 so char slots stay 4-byte word aligned."""
+    W = max(max_len, 0) if pad_to is None else int(pad_to)
+    if W < max_len:
+        raise ValueError(f"pad_to={W} < longest string {max_len}")
+    return (W + 3) // 4 * 4
+
+
 # ---------------------------------------------------------------------------
 # Validity helpers (packed byte bitmask, LSB-first)
 # ---------------------------------------------------------------------------
@@ -171,7 +198,9 @@ def pack_bools(valid: torch.Tensor) -> torch.Tensor:
     if pad:
         v = torch.nn.functional.pad(v, (0, pad))
     v = v.reshape(*valid.shape[:-1], nbytes, 8)
-    out = v[..., 0].clone()
+    # a contiguous copy whatever the input's strides: the kernels take
+    # contiguous masks only
+    out = v[..., 0].clone(memory_format=torch.contiguous_format)
     for j in range(1, 8):
         out |= v[..., j] << j
     return out
@@ -191,14 +220,18 @@ def unpack_bools(mask: torch.Tensor, n: int) -> torch.Tensor:
 
 @dataclasses.dataclass
 class Column:
-    """One fixed-width column: ``data`` ``[n]`` of ``dtype.torch_dtype`` and
-    an optional packed ``validity`` ``uint8 [ceil(n/8)]`` (None: all valid).
-    Columns are not modified in place after construction; views of a
-    decoded backing share its storage."""
+    """One column and an optional packed ``validity`` ``uint8 [ceil(n/8)]``
+    (None: all valid).  Fixed width: ``data`` ``[n]`` of
+    ``dtype.torch_dtype``.  String: ``chars2d`` uint8 ``[n, W]`` (``W % 4
+    == 0``, zeros past each length) and int32 ``lens [n]``, with ``data``
+    an empty placeholder.  Columns are not modified in place after
+    construction; views of a decoded backing share its storage."""
 
     dtype: DType
     data: torch.Tensor
     validity: Optional[torch.Tensor] = None
+    chars2d: Optional[torch.Tensor] = None
+    lens: Optional[torch.Tensor] = None
 
     @staticmethod
     def from_numpy(values: np.ndarray, dtype: DType,
@@ -231,13 +264,67 @@ class Column:
             validity = torch.from_numpy(validity.copy()).to(dev)
         return Column(dtype, data, validity)
 
+    @staticmethod
+    def padded_strings(chars2d: torch.Tensor, lens: torch.Tensor,
+                       validity: Optional[torch.Tensor] = None) -> "Column":
+        """A dense-padded string column from tensors on one device:
+        ``chars2d`` uint8 ``[n, W]`` (``W % 4 == 0``, zeros past each
+        length), int32 ``lens [n]`` with every length in ``[0, W]``, and
+        packed ``validity`` or None.  Shapes and types are checked here;
+        the lengths are checked by the consumers that read the chars."""
+        n = lens.shape[0] if lens.dim() == 1 else -1
+        if (chars2d.dtype != torch.uint8 or chars2d.dim() != 2
+                or chars2d.shape[1] % 4 or lens.dtype != torch.int32
+                or chars2d.shape[0] != n):
+            raise ValueError(
+                f"padded strings need uint8 chars2d [n, W % 4 == 0] and "
+                f"int32 lens [n], got {chars2d.dtype} "
+                f"{tuple(chars2d.shape)} and {lens.dtype} "
+                f"{tuple(lens.shape)}")
+        if validity is not None and tuple(validity.shape) != ((n + 7) // 8,):
+            raise ValueError(f"validity holds {tuple(validity.shape)} bytes "
+                             f"for {n} rows")
+        return Column(STRING, torch.empty(0, dtype=torch.uint8,
+                                          device=chars2d.device),
+                      validity, chars2d, lens)
+
+    @staticmethod
+    def strings_padded(values: Sequence[Optional[str]],
+                       pad_to: Optional[int] = None,
+                       device=None) -> "Column":
+        """A dense-padded string column from Python strings (None: null),
+        UTF-8 encoded; ``W`` is ``pad_to`` or the longest string, rounded
+        up to a multiple of 4."""
+        dev = resolve_device(device)
+        enc = [b"" if s is None else s.encode("utf-8") for s in values]
+        lens = np.fromiter(map(len, enc), dtype=np.int32, count=len(enc))
+        W = _padded_width(int(lens.max()) if len(lens) else 0, pad_to)
+        mat = np.zeros((len(enc), W), np.uint8)
+        for i, b in enumerate(enc):
+            mat[i, :len(b)] = np.frombuffer(b, np.uint8)
+        validity = None
+        if any(s is None for s in values):
+            validity = torch.from_numpy(np.packbits(
+                np.array([s is not None for s in values], bool),
+                bitorder="little")).to(dev)
+        return Column.padded_strings(torch.from_numpy(mat).to(dev),
+                                     torch.from_numpy(lens).to(dev),
+                                     validity)
+
     @property
     def num_rows(self) -> int:
+        if self.dtype.is_string:
+            return self.lens.shape[0]
         return self.data.shape[0]
 
     @property
     def device(self) -> torch.device:
         return self.data.device
+
+    @property
+    def is_padded(self) -> bool:
+        """True for dense-padded string columns (``chars2d`` present)."""
+        return self.chars2d is not None
 
     def valid_bools(self) -> torch.Tensor:
         if self.validity is None:
@@ -245,14 +332,32 @@ class Column:
                               device=self.device)
         return unpack_bools(self.validity, self.num_rows)
 
+    def str_lens(self) -> torch.Tensor:
+        """Per-row string byte lengths, int32 ``[n]``."""
+        return self.lens
+
+    def chars_window(self, W: int) -> torch.Tensor:
+        """Padded byte window uint8 ``[n, W]`` (zero past the lengths): a
+        slice of ``chars2d`` or a zero-padded copy."""
+        have = self.chars2d.shape[1]
+        if have >= W:
+            return self.chars2d[:, :W]
+        return torch.nn.functional.pad(self.chars2d, (0, W - have))
+
     def to_numpy(self) -> np.ndarray:
-        """Host values in the dtype's numpy type, bit for bit."""
+        """Host values in the dtype's numpy type, bit for bit (fixed-width
+        columns; a string column's host form is its ``chars2d`` and
+        ``lens``)."""
+        if self.dtype.is_string:
+            raise ValueError("a string column has no values array; use "
+                             "chars2d and lens")
         return bits_view(self.data).cpu().numpy().view(self.dtype.np_dtype)
 
     def to(self, device) -> "Column":
-        return Column(self.dtype, self.data.to(device),
-                      None if self.validity is None
-                      else self.validity.to(device))
+        def move(t):
+            return None if t is None else t.to(device)
+        return Column(self.dtype, self.data.to(device), move(self.validity),
+                      move(self.chars2d), move(self.lens))
 
 
 _BITS_NP = {1: np.uint8, 2: np.int16, 4: np.int32, 8: np.int64}
@@ -311,16 +416,30 @@ def slice_table(table: Table, start: int, end: int) -> Table:
         if c.validity is not None:
             validity = pack_bools(
                 unpack_bools(c.validity, c.num_rows)[start:end])
-        cols.append(Column(c.dtype, c.data[start:end], validity))
+        if c.dtype.is_string:
+            cols.append(Column(c.dtype, c.data, validity,
+                               c.chars2d[start:end], c.lens[start:end]))
+        else:
+            cols.append(Column(c.dtype, c.data[start:end], validity))
     return Table(tuple(cols))
+
+
+def _string_bytes(c: Column, W: int) -> torch.Tensor:
+    """A string column's chars in a ``[n, W]`` window, zeroed past each
+    length, and its lengths as the last entry of each row."""
+    ch = c.chars_window(W)
+    ch = torch.where(torch.arange(W, device=ch.device) < c.lens[:, None],
+                     ch, torch.zeros((), dtype=torch.uint8, device=ch.device))
+    return torch.cat([ch.to(torch.int32), c.lens[:, None]], dim=1)
 
 
 def assert_tables_equivalent(a: Table, b: Table, *, check_nulls: bool = True):
     """Test oracle: equal types and validity, and data equal by bits (so
-    NaN payloads and signed zeros count).  With ``check_nulls`` (the
-    default) data under null rows is ignored, the semantics of
-    ``CUDF_TEST_EXPECT_TABLES_EQUIVALENT``; without it every row must
-    match."""
+    NaN payloads and signed zeros count); strings equal in length and in
+    their bytes up to it, whatever the padded widths.  With
+    ``check_nulls`` (the default) data under null rows is ignored, the
+    semantics of ``CUDF_TEST_EXPECT_TABLES_EQUIVALENT``; without it every
+    row must match."""
     if (a.num_columns, a.num_rows) != (b.num_columns, b.num_rows):
         raise AssertionError(f"shape {(a.num_columns, a.num_rows)} != "
                              f"{(b.num_columns, b.num_rows)}")
@@ -332,8 +451,14 @@ def assert_tables_equivalent(a: Table, b: Table, *, check_nulls: bool = True):
         vb = cb.valid_bools().to(dev)
         if not torch.equal(va, vb):
             raise AssertionError(f"column {i} validity")
-        da = bits_view(ca.data)
-        db = bits_view(cb.data).to(dev)
+        if ca.dtype.is_string:
+            W = max(ca.chars2d.shape[1], cb.chars2d.shape[1])
+            da = _string_bytes(ca, W)
+            db = _string_bytes(cb.to(dev), W)
+            va, vb = va[:, None], vb[:, None]
+        else:
+            da = bits_view(ca.data)
+            db = bits_view(cb.data).to(dev)
         if check_nulls:
             zero = torch.zeros((), dtype=da.dtype, device=dev)
             da = torch.where(va, da, zero)

@@ -1,9 +1,12 @@
-"""Seeded random fixed-width tables, made on the device.
+"""Seeded random fixed-width tables and padded string columns, made on the
+device, and the edge data the hash kernels are checked on (special floats,
+random bloom bitsets).
 
 The schema helper ``cycle_dtypes`` follows the reference benchmark datagen
 (``generate_input.hpp:445-452``).  Values are uniform random bytes, so float
 columns hold every bit pattern, NaN payloads included (compare them by
-bits); BOOL8 columns hold 0 or 1.  Everything is drawn from one
+bits); BOOL8 columns hold 0 or 1; string bytes take all 256 values, not
+only UTF-8.  Everything is drawn from one
 ``torch.Generator`` on the target device, so a 1M-row table needs no host
 round trip.  Torch's generators give other numbers than ``jax.random``:
 tests that hold the port against the JAX package make their inputs with
@@ -17,7 +20,8 @@ from typing import Optional, Sequence
 import torch
 
 from spark_rapids_jni_tpu_torch.table import (
-    BITS_DTYPES, Column, DType, Table, pack_bools, resolve_device,
+    BITS_DTYPES, FLOAT32, FLOAT64, Column, DType, Table, _padded_width,
+    pack_bools, resolve_device,
 )
 
 
@@ -50,3 +54,76 @@ def random_table(dtypes: Sequence[DType], num_rows: int, *, seed: int = 0,
         data = raw.view(BITS_DTYPES[dt.itemsize]).view(dt.torch_dtype)
         cols.append(Column(dt, data, None if masks is None else masks[i]))
     return Table(tuple(cols))
+
+
+def strings_with_lengths(lens: torch.Tensor, max_len: int, *, seed: int = 0,
+                         null_probability: Optional[float] = 0.25
+                         ) -> Column:
+    """A dense-padded string column with the int32 lengths ``lens`` (each
+    in ``[0, max_len]``), on their device: random bytes (``0x80`` and above
+    included) up to each length and zeros past it, ``W`` = ``max_len``
+    rounded up to a multiple of 4.  Each row is null with
+    ``null_probability``; ``None`` gives no validity mask."""
+    dev = lens.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n, W = lens.shape[0], _padded_width(max_len, None)
+    chars = torch.randint(0, 256, (n, W), dtype=torch.uint8, generator=gen,
+                          device=dev)
+    chars.masked_fill_(torch.arange(W, device=dev) >= lens[:, None], 0)
+    validity = None
+    if null_probability is not None:
+        validity = pack_bools(torch.rand(n, generator=gen, device=dev)
+                              >= null_probability)
+    return Column.padded_strings(chars, lens, validity)
+
+
+def random_strings(num_rows: int, max_len: int, *, seed: int = 0,
+                   null_probability: Optional[float] = 0.25,
+                   device=None) -> Column:
+    """A dense-padded string column of ``num_rows`` random rows, lengths
+    uniform in ``[0, max_len]`` (see :func:`strings_with_lengths`)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    lens = torch.randint(0, max_len + 1, (num_rows,), dtype=torch.int32,
+                         generator=gen, device=dev)
+    return strings_with_lengths(lens, max_len, seed=seed + 1,
+                                null_probability=null_probability)
+
+
+# float bits the hashes normalise: signed zeros, NaN payloads (quiet and
+# signalling, either sign), infinities, a normal value and a denormal
+_F64_SPECIAL = [0x8000000000000000, 0x0, 0x7FF0000000000001,
+                0xFFF8000000000123, 0x7FF0000000000000, 0xFFF0000000000000,
+                0x3FF0000000000000, 0x0000000000000001]
+_F32_SPECIAL = [0x80000000, 0x0, 0x7F800001, 0xFFC00123, 0x7F800000,
+                0xFF800000, 0x3F800000, 0x00000001]
+
+
+def special_floats(num_rows: int, *, device=None) -> Table:
+    """A FLOAT64 and a FLOAT32 column cycling through signed zeros, NaN
+    payloads, infinities, 1.0 and the smallest denormal, without nulls."""
+    dev = resolve_device(device)
+    cols = []
+    for dt, bits in ((FLOAT64, _F64_SPECIAL), (FLOAT32, _F32_SPECIAL)):
+        top = 1 << (8 * dt.itemsize)
+        vals = [b - top if b >= top >> 1 else b for b in bits]
+        t = torch.tensor(vals, dtype=BITS_DTYPES[dt.itemsize], device=dev)
+        t = t.repeat(num_rows // len(vals) + 1)[:num_rows]
+        cols.append(Column(dt, t.view(dt.torch_dtype)))
+    return Table(tuple(cols))
+
+
+def random_bitset(num_words: int, density: float, *, seed: int = 0,
+                  device=None) -> torch.Tensor:
+    """int64 ``[num_words]``: a long[] bitset whose bits are set with
+    probability ``density`` each, as a bloom probe's test filter."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    bits = torch.rand((num_words * 8, 8), generator=gen,
+                      device=dev) < density
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+    return (bits.to(torch.uint8) << shifts).sum(1).to(torch.uint8) \
+        .view(torch.int64)

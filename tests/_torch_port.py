@@ -1,7 +1,9 @@
 """Shared helpers of the ``test_torch_*`` suites: the same seeded numpy data
 fed to the JAX package and to its PyTorch port, and comparisons by bytes."""
 
+import jax.numpy as jnp
 import numpy as np
+import torch
 
 from spark_rapids_jni_tpu import table as jt
 from spark_rapids_jni_tpu_torch import interop
@@ -28,6 +30,18 @@ def jax_dtype(name):
         d.kind, d.kind.upper()))
 
 
+def _validity(rng, n, null_mode):
+    """Bool validity of a null mode: ``none`` (no mask), ``all`` (all
+    valid), ``zero`` (all null) or ``some`` (about 25% null)."""
+    if null_mode == "none":
+        return None
+    if null_mode == "all":
+        return np.ones(n, bool)
+    if null_mode == "zero":
+        return np.zeros(n, bool)
+    return rng.random(n) > 0.25
+
+
 def numpy_columns(rng, names, n, null_mode="some"):
     """(name, values, bool validity or None) per column: uniform random
     bytes (floats take every bit pattern, NaN payloads included), BOOL8 as
@@ -38,17 +52,32 @@ def numpy_columns(rng, names, n, null_mode="some"):
         raw = rng.integers(0, 256, n * d.itemsize, dtype=np.uint8)
         if d.kind == "bool8":
             raw &= 1
-        vals = raw.view(d.np_dtype)
-        if null_mode == "none":
-            valid = None
-        elif null_mode == "all":
-            valid = np.ones(n, bool)
-        elif null_mode == "zero":
-            valid = np.zeros(n, bool)
-        else:
-            valid = rng.random(n) > 0.25
-        cols.append((name, vals, valid))
+        cols.append((name, raw.view(d.np_dtype),
+                     _validity(rng, n, null_mode)))
     return cols
+
+
+def both_string_columns(rng, n, W, null_mode="some"):
+    """The same dense-padded string column in both packages (JAX Column,
+    port Column on the CPU): lengths 0..W in turn from a random start,
+    random bytes (0x80 and above included) up to each length, zeros past
+    it, width W rounded up to a multiple of 4."""
+    Wp = (W + 3) // 4 * 4
+    lens = ((np.arange(n) + rng.integers(0, W + 1)) % (W + 1)).astype(np.int32)
+    chars = rng.integers(0, 256, (n, Wp), dtype=np.uint8)
+    chars[np.arange(Wp)[None, :] >= lens[:, None]] = 0
+    valid = _validity(rng, n, null_mode)
+    packed = (None if valid is None
+              else np.packbits(valid, bitorder="little"))
+    offsets = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    jax_col = jt.Column(jt.STRING, jnp.zeros((0,), jnp.uint8),
+                        None if packed is None else jnp.asarray(packed),
+                        jnp.asarray(offsets), None, jnp.asarray(chars))
+    port = pt.Column.padded_strings(
+        torch.from_numpy(chars), torch.from_numpy(lens),
+        None if packed is None else torch.from_numpy(packed))
+    return jax_col, port
 
 
 def both_tables(rng, names, n, null_mode="some"):
@@ -63,6 +92,13 @@ def both_tables(rng, names, n, null_mode="some"):
     return jax_table, port
 
 
+def xx_as_int64(pairs) -> np.ndarray:
+    """The JAX package's xxhash64 ``[n, 2]`` uint32 (lo, hi) as the port's
+    int64: one little-endian 64-bit word."""
+    return np.ascontiguousarray(np.asarray(pairs, np.uint32)).view(np.int64) \
+        .reshape(-1)
+
+
 def port_table(rng, names, n, null_mode="some"):
     """A random port table on the CPU, for tests with no JAX side."""
     return pt.Table(tuple(
@@ -71,14 +107,18 @@ def port_table(rng, names, n, null_mode="some"):
 
 
 def jax_columns(table):
-    """A JAX table as interop triples (64-bit plane pairs as native
-    values)."""
+    """A JAX table as interop tuples (64-bit plane pairs as native values;
+    a padded string column as its chars2d and lengths)."""
     out = []
     for c in table.columns:
+        validity = None if c.validity is None else np.asarray(c.validity)
+        if c.dtype.is_string:
+            out.append(("string", np.asarray(c.chars2d),
+                        np.asarray(c.str_lens()), validity))
+            continue
         data = np.asarray(c.data)
         if data.ndim == 2 and c.dtype.itemsize == 8:
             data = jt.pair_to_np64(data, c.dtype.np_dtype)
-        validity = None if c.validity is None else np.asarray(c.validity)
         out.append((repr(c.dtype), data.view(c.dtype.np_dtype), validity))
     return out
 
@@ -89,11 +129,15 @@ def assert_same_columns(port_table, jax_table):
     got = interop.table_to_numpy_columns(port_table)
     want = jax_columns(jax_table)
     assert len(got) == len(want)
-    for i, ((gn, gd, gv), (wn, wd, wv)) in enumerate(zip(got, want)):
+    for i, (g, w) in enumerate(zip(got, want)):
+        gn, gd, gv, wn, wd, wv = g[0], g[1], g[-1], w[0], w[1], w[-1]
         assert gn == wn, (i, gn, wn)
         assert gd.dtype == wd.dtype, (i, gd.dtype, wd.dtype)
         np.testing.assert_array_equal(gd.view(np.uint8), wd.view(np.uint8),
                                       err_msg=f"column {i} data")
+        if gn == "string":
+            np.testing.assert_array_equal(g[2], w[2],
+                                          err_msg=f"column {i} lengths")
         n = len(gd)
         gb = np.unpackbits(gv, bitorder="little")[:n] if gv is not None \
             else np.ones(n, np.uint8)

@@ -11,20 +11,26 @@ import pytest
 import torch
 
 from spark_rapids_jni_tpu_torch import (
-    BOOL8, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64, UINT8, UINT16,
-    UINT32, UINT64, decimal32, decimal64,
+    BOOL8, DATE32, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64, TIMESTAMP64,
+    UINT8, UINT16, UINT32, UINT64, Column, decimal32, decimal64,
 )
+from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
 from spark_rapids_jni_tpu_torch.ops import kernels, row_mxu
 from spark_rapids_jni_tpu_torch.ops import row_conversion as prc
 from spark_rapids_jni_tpu_torch.ops.row_layout import compute_row_layout
 from spark_rapids_jni_tpu_torch.table import assert_tables_equivalent
-from spark_rapids_jni_tpu_torch.utils import cycle_dtypes, random_table
+from spark_rapids_jni_tpu_torch.utils import (
+    cycle_dtypes, random_bitset, random_table, special_floats,
+    strings_with_lengths,
+)
 
 ALL_FIXED = [INT64, FLOAT64, UINT64, INT32, UINT32, FLOAT32, INT16, UINT16,
              INT8, UINT8, BOOL8, decimal32(2), decimal64(-1)]
 WIDE = cycle_dtypes([INT64, FLOAT64, INT32, FLOAT32, INT16, INT8, BOOL8], 212)
 SCHEMAS = {"all_fixed": ALL_FIXED, "wide212": WIDE, "one_int8": [INT8],
            "odd_int16": [INT16] * 3, "int64_pair": [INT64, INT64]}
+HASH_FIXED = ALL_FIXED + [DATE32, TIMESTAMP64]
+BLOOM_TYPES = [INT8, INT16, INT32, DATE32, INT64, TIMESTAMP64]
 
 
 @pytest.fixture
@@ -89,10 +95,77 @@ def test_launches_count_kernel_runs_only(cuda):
     kernels.grouped_encode(gc.planes, gc.vmask, layout, 10, 0)
     kernels.grouped_encode_plain(gc.planes, gc.vmask, layout, 0, 100)
     kernels.decode_planes_plain(rows, layout)
-    assert kernels.launches == {"grouped_encode": 1, "decode_planes": 1}
+    hk.murmur3_cols(t.columns, 42)
+    hk.xxhash64_cols(t.columns, 42)
+    words = random_bitset(4, 0.5, device=cuda)
+    hk.bloom_might_contain(words, t.columns[0], 3)
+    hk.murmur3_cols_plain(t.columns, 42)
+    hk.xxhash64_cols_plain(t.columns, 42)
+    hk.bloom_might_contain_plain(words, t.columns[0], 3)
+    want = dict.fromkeys(kernels.launches, 1)
+    assert kernels.launches == want
     empty = kernels.decode_planes(rows[:0], layout)
     assert empty[0].shape == (row_mxu._inverse_plan(layout)[0].num_words, 0)
-    assert kernels.launches == {"grouped_encode": 1, "decode_planes": 1}
+    no_rows = Column(INT64, t.columns[0].data[:0])
+    assert hk.murmur3_cols([no_rows], 42).shape == (0,)
+    assert hk.xxhash64_cols([no_rows], 42).shape == (0,)
+    assert kernels.launches == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 31, 6 * 1024 + 557])
+def test_hash_kernels_match_plain_versions(cuda, n):
+    strings = [strings_with_lengths(
+        (torch.arange(n, device=cuda) % (W + 1)).to(torch.int32), W, seed=W)
+        for W in (0, 4, 12, 36, 68)]
+    for nulls in (None, 0.0, 1.0, 0.25):
+        t = random_table(HASH_FIXED, n, seed=n, null_probability=nulls,
+                         device=cuda)
+        cases = ([[c] for c in t.columns] + [list(t.columns)]
+                 + [[s] for s in strings] + [strings + [t.columns[0]]]
+                 + [list(special_floats(n, device=cuda).columns)])
+        for seed in (42, 7):
+            for cols in cases:
+                assert torch.equal(hk.murmur3_cols(cols, seed),
+                                   hk.murmur3_cols_plain(cols, seed)), \
+                    (nulls, seed, [c.dtype for c in cols])
+                assert torch.equal(hk.xxhash64_cols(cols, seed),
+                                   hk.xxhash64_cols_plain(cols, seed)), \
+                    (nulls, seed, [c.dtype for c in cols])
+
+
+@pytest.mark.gpu
+def test_hash_many_columns_one_launch(cuda):
+    """A chain over every column of the 212-column schema and 300 more
+    takes one launch; past MAX_HASH_COLS columns the kernels refuse."""
+    t = random_table(WIDE + cycle_dtypes(HASH_FIXED, 300), 1000, seed=3,
+                     null_probability=0.25, device=cuda)
+    kernels.reset_launches()
+    for fn, plain in ((hk.murmur3_cols, hk.murmur3_cols_plain),
+                      (hk.xxhash64_cols, hk.xxhash64_cols_plain)):
+        assert torch.equal(fn(t.columns, 42), plain(t.columns, 42))
+        with pytest.raises(ValueError, match="at most"):
+            fn([t.columns[0]] * (hk.MAX_HASH_COLS + 1), 42)
+    assert kernels.launches["murmur3_cols"] == 1
+    assert kernels.launches["xxhash64_cols"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 6, 12])
+def test_bloom_kernel_matches_plain_version(cuda, k):
+    for num_words in (1, 131_072, (1 << 25) + 1):
+        words = random_bitset(num_words, 0.5 ** (1 / k), seed=k,
+                              device=cuda)
+        for n in (1, 31, 6 * 1024 + 557):
+            for nulls in (None, 0.0, 1.0, 0.25):
+                t = random_table(BLOOM_TYPES, n, seed=n,
+                                 null_probability=nulls, device=cuda)
+                for col in t.columns:
+                    got = hk.bloom_might_contain(words, col, k)
+                    assert torch.equal(
+                        got, hk.bloom_might_contain_plain(words, col, k)), \
+                        (num_words, n, nulls, col.dtype)
+                    assert not got[~col.valid_bools()].any()
 
 
 @pytest.mark.gpu

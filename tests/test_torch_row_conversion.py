@@ -172,4 +172,5 @@ def test_cpu_runs_launch_no_kernel(rng):
     kernels.reset_launches()
     rows = prc.convert_to_rows(table, device=CPU)
     prc.convert_from_rows(rows[0], table.dtypes, device=CPU)
-    assert kernels.launches == {"grouped_encode": 0, "decode_planes": 0}
+    assert {"grouped_encode", "decode_planes"} <= set(kernels.launches)
+    assert kernels.launches == dict.fromkeys(kernels.launches, 0)

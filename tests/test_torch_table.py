@@ -1,6 +1,7 @@
-"""PyTorch port, columnar core: packed validity, types, interop and table
-helpers held against the JAX package (``spark_rapids_jni_tpu.table``) on
-the same seeded numpy data.  All comparisons are exact."""
+"""PyTorch port, columnar core: packed validity, types, dense-padded string
+columns, interop and table helpers held against the JAX package
+(``spark_rapids_jni_tpu.table``) on the same seeded numpy data.  All
+comparisons are exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,10 +11,13 @@ import torch
 from spark_rapids_jni_tpu import table as jt
 from spark_rapids_jni_tpu_torch import interop
 from spark_rapids_jni_tpu_torch import table as pt
-from spark_rapids_jni_tpu_torch.utils import cycle_dtypes, random_table
+from spark_rapids_jni_tpu_torch.utils import (
+    cycle_dtypes, random_bitset, random_strings, random_table,
+    special_floats, strings_with_lengths,
+)
 from tests._torch_port import (
-    ALL_FIXED_NAMES, assert_same_columns, both_tables, jax_columns,
-    jax_dtype, numpy_columns,
+    ALL_FIXED_NAMES, NULL_MODES, assert_same_columns, both_string_columns,
+    both_tables, jax_columns, jax_dtype, numpy_columns,
 )
 
 
@@ -171,3 +175,138 @@ def test_cycle_dtypes_matches_jax():
     got = cycle_dtypes([pt.dtype_from_name(n) for n in names], 8)
     want = jax_cycle([jax_dtype(n) for n in names], 8)
     assert [repr(d) for d in got] == [repr(d) for d in want]
+
+
+# ---------------------------------------------------------------------------
+# Dense-padded string columns
+# ---------------------------------------------------------------------------
+
+STRINGS = ["", None, "a", "abcd", "abcde", "déf", "日本語テキスト", None,
+           "0123456789abcdef-", "\x7f\x80"]
+
+
+@pytest.mark.parametrize("pad_to", [None, 40])
+def test_strings_padded_matches_jax(pad_to):
+    """UTF-8 bytes (0x80 and above included), lengths, width and nulls."""
+    port = pt.Column.strings_padded(STRINGS, pad_to, device="cpu")
+    want = jt.Column.strings_padded(STRINGS, pad_to)
+    assert port.is_padded and want.is_padded
+    assert port.chars2d.shape == tuple(want.chars2d.shape)
+    assert port.chars2d.shape[1] % 4 == 0
+    np.testing.assert_array_equal(port.chars2d.numpy(),
+                                  np.asarray(want.chars2d))
+    np.testing.assert_array_equal(port.str_lens().numpy(),
+                                  np.asarray(want.str_lens()))
+    np.testing.assert_array_equal(port.valid_bools().numpy(),
+                                  np.asarray(want.valid_bools()))
+    with pytest.raises(ValueError, match="pad_to"):
+        pt.Column.strings_padded(STRINGS, 3, device="cpu")
+
+
+@pytest.mark.parametrize("W", [0, 5, 12, 33])
+def test_string_windows_and_words_match_jax(rng, W):
+    jax_col, port = both_string_columns(rng, 37, W)
+    Wp = port.chars2d.shape[1]
+    for width in sorted({0, 4, Wp, Wp + 8}):
+        got = port.chars_window(width)
+        want = np.asarray(jax_col.chars_window(width))
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(
+            pt.bytes2d_to_words(got).numpy().view(np.uint32),
+            np.asarray(jt.bytes2d_to_words(jnp.asarray(want))))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pt.bytes2d_to_words(port.chars2d[:, :3] if W > 3 else
+                            torch.zeros((2, 3), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("null_mode", NULL_MODES)
+def test_string_interop_round_trip(rng, null_mode):
+    jax_s, port_s = both_string_columns(rng, 29, 21, null_mode)
+    jax_table, port = both_tables(rng, ["int64", "float32"], 29, null_mode)
+    jt_all = jt.Table((jax_s, *jax_table.columns))
+    pt_all = pt.Table((port_s, *port.columns))
+    assert_same_columns(pt_all, jt_all)
+    carried = interop.table_from_numpy_columns(jax_columns(jt_all), "cpu")
+    assert_same_columns(carried, jt_all)
+    again = interop.table_from_numpy_columns(
+        interop.table_to_numpy_columns(carried), "cpu")
+    pt.assert_tables_equivalent(carried, again, check_nulls=False)
+
+
+def test_interop_refuses_arrow_strings():
+    with pytest.raises(NotImplementedError, match="strings slice"):
+        interop.table_from_numpy_columns(
+            [("string", np.zeros(3, np.uint8), None)], "cpu")
+
+
+@pytest.mark.parametrize("start,end", [(0, 37), (3, 29), (8, 16), (5, 5)])
+def test_slice_table_strings_match_jax(rng, start, end):
+    jax_s, port_s = both_string_columns(rng, 37, 9)
+    jax_table, port = both_tables(rng, ["int16"], 37)
+    got = pt.slice_table(pt.Table((port_s, *port.columns)), start, end)
+    want = jt.slice_table(jt.Table((jax_s, *jax_table.columns)), start, end)
+    assert_same_columns(got, want)
+
+
+def test_assert_tables_equivalent_strings():
+    a = pt.Column.strings_padded(["ab", None, "xyz"], device="cpu")
+    b = pt.Column.strings_padded(["ab", None, "xyz"], pad_to=16,
+                                 device="cpu")
+    pt.assert_tables_equivalent(pt.Table((a,)), pt.Table((b,)),
+                                check_nulls=False)
+    other = pt.Column.strings_padded(["ab", None, "xyw"], device="cpu")
+    with pytest.raises(AssertionError, match="column 0 data"):
+        pt.assert_tables_equivalent(pt.Table((a,)), pt.Table((other,)))
+    # bytes and length under a null row count only without check_nulls
+    under = pt.Column.padded_strings(a.chars2d.clone(), a.lens.clone(),
+                                     a.validity)
+    under.chars2d[1, 0] = 7
+    under.lens[1] = 1
+    pt.assert_tables_equivalent(pt.Table((a,)), pt.Table((under,)))
+    with pytest.raises(AssertionError):
+        pt.assert_tables_equivalent(pt.Table((a,)), pt.Table((under,)),
+                                    check_nulls=False)
+
+
+def test_padded_strings_refuses_bad_shapes():
+    lens = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="padded strings"):
+        pt.Column.padded_strings(torch.zeros((3, 6), dtype=torch.uint8), lens)
+    with pytest.raises(ValueError, match="padded strings"):
+        pt.Column.padded_strings(torch.zeros((2, 4), dtype=torch.uint8), lens)
+    with pytest.raises(ValueError, match="validity"):
+        pt.Column.padded_strings(torch.zeros((3, 4), dtype=torch.uint8),
+                                 lens, torch.zeros(2, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="chars2d"):
+        pt.Column.padded_strings(torch.zeros((3, 4), dtype=torch.uint8),
+                                 lens).to_numpy()
+
+
+def test_random_strings_are_seeded():
+    a = random_strings(2000, 64, seed=5, device="cpu")
+    b = random_strings(2000, 64, seed=5, device="cpu")
+    pt.assert_tables_equivalent(pt.Table((a,)), pt.Table((b,)),
+                                check_nulls=False)
+    assert a.chars2d.shape == (2000, 64)
+    assert int(a.lens.min()) == 0 and int(a.lens.max()) == 64
+    past = torch.arange(64) >= a.lens[:, None]
+    assert not a.chars2d[past].any()
+    assert (a.chars2d >= 0x80).any()
+    assert 0.15 < 1 - a.valid_bools().float().mean().item() < 0.35
+    lens = torch.arange(10, dtype=torch.int32) % 7
+    c = strings_with_lengths(lens, 6, null_probability=None)
+    assert c.chars2d.shape == (10, 8) and c.validity is None
+    assert torch.equal(c.lens, lens)
+
+
+def test_special_floats_and_bitsets():
+    t = special_floats(19, device="cpu")
+    f64 = t.columns[0].data.view(torch.int64)
+    assert t.columns[0].dtype == pt.FLOAT64 and f64.shape == (19,)
+    assert int(f64[0]) == -2 ** 63 and int(f64[8]) == -2 ** 63  # -0.0
+    assert torch.isnan(t.columns[1].data).any()
+    assert torch.isinf(t.columns[1].data).any()
+    words = random_bitset(1000, 0.25, seed=1, device="cpu")
+    assert words.dtype == torch.int64 and words.shape == (1000,)
+    ones = np.unpackbits(words.numpy().view(np.uint8)).mean()
+    assert 0.23 < ones < 0.27
