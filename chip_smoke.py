@@ -16,15 +16,24 @@ launch count set to 0 just before the path and read just after:
   padded string column (lengths 0..64) and an INT64 column, at 4M rows;
 - the bloom probe ``might_contain_device`` of 4M INT64 rows against Spark's
   runtime-filter defaults: 8,388,608 bits with 1M build keys, and the
-  67,108,864-bit maximum with 4M build keys, built on the host.
+  67,108,864-bit maximum with 4M build keys, built on the host;
+- dense-padded string row conversion at the reference's mixed axis (130
+  fixed-width columns and 25 STRING columns of lengths 0..32, 1% nulls):
+  1M rows (one 1624-byte-row batch, decoded by one K2 launch at that
+  stride, and ``compact_rows_host`` of a 100,000-row slice) and 2M rows
+  (two batches of 1,000,000 rows);
+- the two-stage encode: ``convert_to_rows`` of 6M rows of the 212-column
+  schema, whose resident pack passes the 4 GiB cap, in six batches of one
+  K3 launch each, every batch equal to K1's rows for the same rows.
 
 Every kernel is held against its plain PyTorch version on the card, bit for
 bit, at every one of those shapes; then against 64-bit offsets (a string
 column of 24M rows of 96 bytes, a filter of 2^31 + 64 bits) and at edge
-shapes, types and null patterns.  Row conversion round trips must give back
-their input bit for bit; partition ids must equal those of the original
-columns; the bloom probe must equal the host probe, keep every build key and
-give False for nulls.  Each kernel is timed, its bound being the larger of
+shapes, types and null patterns (K3 at odd starts, the padded decode at
+string widths 0, 4 and 32).  Row conversion round trips must give back
+their input bit for bit, string lengths and chars included; partition ids
+must equal those of the original columns; the bloom probe must equal the
+host probe, keep every build key and give False for nulls.  Each kernel is timed, its bound being the larger of
 the bytes it must move over the card's memory rate and the arithmetic
 instructions its work needs over the card's issue rate.
 
@@ -57,7 +66,13 @@ PEAK_BYTES_PER_S = 3.35e12
 # it is the instructions side of the hash kernels' bound_ms.
 PEAK_INSTR_PER_S = 132 * 4 * 32 * 1.98e9
 N_1M = 1_000_000
+N_2M = 2_000_000
 N_4M = 4_000_000
+# rows of the two-stage phase: the 212-column table's resident pack passes
+# the 4 GiB cap of convert_to_rows
+N_6M = 6_000_000
+# rows of the padded batch slice compacted on the host
+N_COMPACT = 100_000
 # rows of the 64-bit offsets phase: 213 planes of this many words pass 2^31
 N_WIDE = 10_240_000
 # a padded string column whose chars pass 2^31 bytes
@@ -90,6 +105,7 @@ BLOOM_PROBE = 20              # one probe: index, remainder, address, bit
 KERNELS = (  # name, the TPU kernel it replaces
     ("grouped_encode", "spark_rapids_jni_tpu/ops/row_mxu.py:513"),
     ("decode_planes", "spark_rapids_jni_tpu/ops/row_mxu.py:954"),
+    ("pack_planes", "spark_rapids_jni_tpu/ops/row_mxu.py:233"),
     ("murmur3_cols", "spark_rapids_jni_tpu/ops/pallas_kernels.py:535"),
     ("xxhash64_cols", "spark_rapids_jni_tpu/ops/pallas_kernels.py:671"),
     ("bloom_might_contain", "spark_rapids_jni_tpu/ops/pallas_kernels.py:830"),
@@ -139,6 +155,41 @@ def median_ms(fn, runs=TIMED_RUNS, warmup=3, flush=False):
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def profile_breakdown(fn, top=8) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time (host
+    clock to a synchronize, the profiler's cost included), the summed time
+    of the card's kernels, their share of the wall time, and the kernels
+    that took most of it, by name."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            slot = by_name.setdefault(e.name, [0.0, 0])
+            slot[0] += e.time_range.elapsed_us() / 1e3
+            slot[1] += 1
+    kernel_ms = sum(v[0] for v in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    # the torch ops that launched them, by the card's time under each
+    ops = sorted(((k.key, k.self_device_time_total / 1e3, k.count)
+                  for k in prof.key_averages()
+                  if k.key.startswith("aten::")
+                  and k.self_device_time_total > 0), key=lambda t: -t[1])
+    return {"wall_ms": wall_ms, "kernel_ms": kernel_ms,
+            "busy_share": kernel_ms / wall_ms,
+            "launches": sum(v[1] for v in by_name.values()),
+            "top_kernels": [[name[:60], ms, count]
+                            for name, (ms, count) in ranked],
+            "top_ops": [list(t) for t in ops[:top]]}
 
 
 def copy_ms(nbytes: int) -> float:
@@ -534,6 +585,347 @@ def phase_hash_edges(errs):
     emit(phase="hash_edges", cases=cases)
 
 
+# ---------------------------------------------------------------------------
+# Dense-padded strings and the two-stage encode
+# ---------------------------------------------------------------------------
+
+def _table_bytes(table) -> int:
+    """Bytes of a table: each column's values (a padded string's chars and
+    lengths) and its mask."""
+    total = 0
+    for c in table.columns:
+        if c.validity is not None:
+            total += c.validity.numel()
+        if c.dtype.is_string:
+            total += c.chars2d.numel() + 4 * c.num_rows
+        else:
+            total += c.data.numel() * c.data.element_size()
+    return total
+
+
+def _string_table(n: int, seed: int):
+    """The reference's mixed axis (bench.py:412-431): 130 fixed-width
+    columns cycling the benchmark types and 25 padded STRING columns,
+    lengths uniform in 0..32, 1% nulls (the reference data_profile)."""
+    from spark_rapids_jni_tpu_torch import (
+        BOOL8, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64, STRING,
+    )
+    from spark_rapids_jni_tpu_torch.utils import cycle_dtypes, random_table
+    dtypes = cycle_dtypes([INT64, FLOAT64, INT32, FLOAT32, INT16, INT8,
+                           BOOL8], 130) + [STRING] * 25
+    return random_table(dtypes, n, seed=seed, null_probability=0.01,
+                        string_lens=(0, 32))
+
+
+def _check_strings_equal(want, got, what):
+    """Round trip bit-exact: values and nulls by bits, and each string
+    column's lengths and whole char matrix (zeros past each length on both
+    sides)."""
+    from spark_rapids_jni_tpu_torch.table import assert_tables_equivalent
+    assert_tables_equivalent(want, got, check_nulls=False)
+    for i, (a, b) in enumerate(zip(want.columns, got.columns)):
+        if a.dtype.is_string:
+            check(torch.equal(a.lens, b.lens)
+                  and torch.equal(a.chars2d, b.chars2d),
+                  f"{what}: string column {i} lengths or chars")
+
+
+def _hold_decode(r2d, layout, errs, what):
+    """K2 against its plain version on rows ``r2d``."""
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    pk, vk = kernels.decode_planes(r2d, layout)
+    pp, vp = kernels.decode_planes_plain(r2d, layout)
+    errs["decode_planes"] = max(errs["decode_planes"], max_abs_err(pk, pp),
+                                max_abs_err(vk, vp))
+    check(torch.equal(pk, pp) and torch.equal(vk, vp),
+          f"decode kernel != plain version: {what}")
+
+
+def _check_compaction(rows, dtypes, layout):
+    """compact_rows_host of a padded batch: offsets are the rows' rounded
+    sizes cumulated, and sampled rows hold their padded rows' fixed bytes
+    (the pairs' offsets rewritten) and chars."""
+    from spark_rapids_jni_tpu_torch.ops import (
+        compact_rows_host, padded_variable_layout,
+    )
+    t0 = time.perf_counter()
+    compact = compact_rows_host(rows, dtypes)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n, rs, fe = rows.num_rows, rows.row_size, layout.fixed_end
+    padded = rows.rows2d(rs).cpu().numpy()
+    blob, offs = compact.data.cpu().numpy(), compact.offsets.cpu().numpy()
+    pairs = np.stack([padded[:, s:s + 8].copy().view(np.uint32)
+                      for s in layout.variable_starts], axis=1)  # [n, k, 2]
+    lens = pairs[:, :, 1].astype(np.int64)
+    sizes = (fe + lens.sum(axis=1) + 7) // 8 * 8
+    check(offs[0] == 0 and np.array_equal(offs[1:], np.cumsum(sizes)),
+          "compact offsets != rounded row sizes cumulated")
+    slots = padded_variable_layout(layout, rows.str_widths)[0]
+    rng = np.random.default_rng(5)
+    sample = rng.choice(n, 64, replace=False)
+    for r in sample:
+        row = blob[offs[r]:offs[r + 1]]
+        fixed, want = row[:fe].copy(), padded[r, :fe].copy()
+        for s in layout.variable_starts:
+            fixed[s:s + 4] = want[s:s + 4] = 0
+        check(np.array_equal(fixed, want),
+              f"compact row {r}: fixed bytes != the padded row's")
+        for si, s in enumerate(layout.variable_starts):
+            off, ln = row[s:s + 8].copy().view(np.uint32)
+            check(ln == lens[r, si], f"compact row {r}: length {si}")
+            check(np.array_equal(row[off:off + ln],
+                                 padded[r, slots[si]:slots[si] + ln]),
+                  f"compact row {r}: chars of string column {si}")
+    return {"rows": n, "seconds": seconds, "bytes": int(offs[-1]),
+            "padded_bytes": n * rs, "sampled_rows": len(sample)}
+
+
+def phase_strings_1m(errs, timing):
+    """The padded string path at 1M rows of the 155-column axis: encode to
+    one batch, decode it (K2 over the fixed sections at the padded stride),
+    round trip bit-exact, K2 against its plain version, compaction of a
+    100,000-row slice, and the entry points' times."""
+    from spark_rapids_jni_tpu_torch.ops import (
+        RowsColumn, compute_row_layout, convert_from_rows, convert_to_rows,
+    )
+    from spark_rapids_jni_tpu_torch.ops import kernels, row_mxu
+    table = _string_table(N_1M, seed=42)
+    dtypes = table.dtypes
+    layout = compute_row_layout(dtypes)
+
+    def run():
+        b = convert_to_rows(table)
+        return b, convert_from_rows(b[0], dtypes)
+
+    (batches, decoded), launches = _read_path(kernels, run)
+    check(launches["decode_planes"] == 1 and launches["grouped_encode"] == 0
+          and launches["pack_planes"] == 0, f"strings launches {launches}")
+    rows = batches[0]
+    rs = rows.row_size
+    check(len(batches) == 1 and rs == 1624
+          and tuple(rows.data.shape) == (N_1M, rs)
+          and rows.str_widths == (32,) * 25,
+          f"strings encode gave {[tuple(b.data.shape) for b in batches]}, "
+          f"row size {rs}")
+    check(rs > layout.fixed_row_size, "the padded stride is not wider")
+    _check_strings_equal(table, decoded, "strings 1M")
+    r2d = rows.rows2d(rs)
+    _hold_decode(r2d, layout, errs, "padded strings 1M")
+    del decoded
+    compaction = _check_compaction(
+        RowsColumn(rows.data[:N_COMPACT], rows.offsets[:N_COMPACT + 1], rs,
+                   rows.str_widths), dtypes, layout)
+    nbytes = _table_bytes(table) + N_1M * rs
+    bound = {"bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+             "bound_by": "bytes"}
+    timing["strings_encode_1m"] = {
+        "rows": N_1M, "ms": median_ms(lambda: convert_to_rows(table),
+                                      runs=10), **bound}
+    timing["strings_decode_1m"] = {
+        "rows": N_1M, "ms": median_ms(lambda: convert_from_rows(rows, dtypes),
+                                      runs=10), **bound}
+    k2_bytes = (N_1M * kernels._decode_load_bytes(layout)
+                + 4 * row_mxu._inverse_plan(layout)[0].num_words * N_1M
+                + layout.num_columns * N_1M // 8)
+    timing["decode_planes_padded_1m"] = {
+        "rows": N_1M, "row_stride": rs,
+        "ms": median_ms(lambda: kernels.decode_planes(r2d, layout)),
+        "bytes": k2_bytes, "bound_ms": k2_bytes / PEAK_BYTES_PER_S * 1e3,
+        "bound_by": "bytes"}
+    emit(phase="profile_strings_1m",
+         encode=profile_breakdown(lambda: convert_to_rows(table)),
+         decode=profile_breakdown(lambda: convert_from_rows(rows, dtypes)))
+    emit(phase="strings_1m", rows=N_1M, columns=len(dtypes), row_size=rs,
+         batch_bytes=rows.data.numel(), launches=launches,
+         k2_row_stride=rs, roundtrip_bit_exact=True, equal_plain=True,
+         compaction=compaction)
+    return launches
+
+
+def phase_strings_2m(errs):
+    """The same axis at 2M rows: two equal batches of 1,000,000 rows, each
+    decoded (K2 each), the round trip bit-exact."""
+    from spark_rapids_jni_tpu_torch.ops import (
+        compute_row_layout, convert_from_rows, convert_to_rows,
+    )
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    from spark_rapids_jni_tpu_torch.table import slice_table
+    table = _string_table(N_2M, seed=43)
+    dtypes = table.dtypes
+    layout = compute_row_layout(dtypes)
+
+    def run():
+        b = convert_to_rows(table)
+        return b, [convert_from_rows(x, dtypes) for x in b]
+
+    (batches, parts), launches = _read_path(kernels, run)
+    sizes = [b.num_rows for b in batches]
+    check(sizes == [N_1M, N_1M], f"2M string batches {sizes}")
+    check(launches["decode_planes"] == 2 and launches["grouped_encode"] == 0,
+          f"2M strings launches {launches}")
+    start = 0
+    for b, part in zip(batches, parts):
+        _check_strings_equal(slice_table(table, start, start + b.num_rows),
+                             part, f"strings 2M at {start}")
+        _hold_decode(b.rows2d(b.row_size), layout, errs,
+                     f"padded strings 2M at {start}")
+        start += b.num_rows
+    emit(phase="strings_2m_multibatch", rows=N_2M, batch_rows=sizes,
+         batch_bytes=[b.data.numel() for b in batches], launches=launches,
+         roundtrip_bit_exact=True, equal_plain=True)
+    return launches
+
+
+def _pack_bytes(table, layout, size: int) -> int:
+    """Bytes K3 must move for ``size`` rows: each value and mask bit read
+    once, each plane word written once."""
+    from spark_rapids_jni_tpu_torch.ops import row_mxu
+    masked = sum(c.validity is not None for c in table.columns)
+    return (sum(layout.col_sizes) * size + masked * -(-size // 8)
+            + 4 * row_mxu._forward_plan(layout)[0].num_words * size)
+
+
+def phase_pack_planes_6m(dtypes, errs, timing):
+    """The two-stage encode: 6M rows of the 212-column schema, 25% nulls,
+    whose resident pack passes the 4 GiB cap, so convert_to_rows encodes
+    batch by batch through K3.  Each batch against K1's rows for the same
+    rows and K3 against its plain version on every batch; K3 timed over a
+    1M-row batch, and the whole two-stage encode beside the grouped
+    route."""
+    from spark_rapids_jni_tpu_torch.ops import (
+        compute_row_layout, convert_to_rows, convert_to_rows_grouped,
+    )
+    from spark_rapids_jni_tpu_torch.ops import kernels, row_mxu
+    from spark_rapids_jni_tpu_torch.ops import row_conversion
+    from spark_rapids_jni_tpu_torch.table import slice_table
+    from spark_rapids_jni_tpu_torch.utils import random_table
+    torch.cuda.reset_peak_memory_stats()
+    layout = compute_row_layout(dtypes)
+    table = random_table(dtypes, N_6M, seed=6, null_probability=0.25)
+    prep = (sum(c.data.numel() * c.data.element_size()
+                for c in table.columns) + layout.num_columns * N_6M // 8)
+    check(prep > row_conversion._FUSED_PREP_CAP,
+          f"resident pack {prep} does not pass the cap")
+    batches, launches = _read_path(kernels, lambda: convert_to_rows(table))
+    sizes = [b.num_rows for b in batches]
+    check(sizes == [N_1M] * 6, f"6M batches {sizes}")
+    check(launches["pack_planes"] == 6 and launches["grouped_encode"] == 0,
+          f"6M launches {launches}")
+    start = 0
+    for b in batches:
+        k = kernels.pack_planes(table, layout, start, b.num_rows)
+        p = kernels.pack_planes_plain(table, layout, start, b.num_rows)
+        errs["pack_planes"] = max(errs["pack_planes"], max_abs_err(k, p))
+        check(torch.equal(k, p), f"pack kernel != plain version at {start}")
+        del k, p
+        gc = row_mxu.table_to_grouped(
+            slice_table(table, start, start + b.num_rows), layout)
+        k1 = kernels.grouped_encode(gc.planes, gc.vmask, layout, 0,
+                                    b.num_rows)
+        check(torch.equal(b.data, k1),
+              f"two-stage batch at {start} != K1's rows")
+        del gc, k1
+        start += b.num_rows
+    peak = torch.cuda.max_memory_allocated()
+    del batches
+    torch.cuda.empty_cache()
+    nbytes = _pack_bytes(table, layout, N_1M)
+    timing["pack_planes"] = {
+        "rows": N_1M, "start": 2 * N_1M,
+        "ms": median_ms(lambda: kernels.pack_planes(table, layout, 2 * N_1M,
+                                                    N_1M), flush=True),
+        "plain_ms": median_ms(lambda: kernels.pack_planes_plain(
+            table, layout, 2 * N_1M, N_1M), runs=5, warmup=1),
+        "copy_ms": copy_ms(nbytes), "bytes": nbytes,
+        "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    timing["two_stage_6m"] = {
+        "rows": N_6M,
+        "convert_to_rows_ms": median_ms(lambda: convert_to_rows(table),
+                                        runs=3, warmup=1),
+        "grouped_route_ms": median_ms(lambda: convert_to_rows_grouped(
+            row_mxu.table_to_grouped(table, layout)), runs=3, warmup=1),
+        "second_stage_ms": median_ms(lambda: row_mxu.forward_planes_to_rows(
+            kernels.pack_planes(table, layout, 2 * N_1M, N_1M), layout),
+            runs=5) - timing["pack_planes"]["ms"]}
+    emit(phase="profile_two_stage_batch", rows=N_1M,
+         to_rows_fixed=profile_breakdown(lambda: row_mxu.to_rows_fixed(
+             table, layout, 2 * N_1M, N_1M)))
+    emit(phase="pack_planes_6m", rows=N_6M, resident_pack_bytes=prep,
+         batch_rows=sizes, launches=launches, equal_plain=True,
+         equal_k1=True, peak_memory_bytes=peak)
+    return launches
+
+
+def phase_pack_edges(errs):
+    """K3 at 1, 33, 257 and 2125 rows, odd starts, every null pattern, four
+    schemas; the two-stage encode against K1; the padded decode with
+    string widths 0, 4 and 32.  Every comparison exact."""
+    from spark_rapids_jni_tpu_torch import (
+        BOOL8, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64, STRING, UINT8,
+        UINT16, UINT32, UINT64, decimal32, decimal64,
+    )
+    from spark_rapids_jni_tpu_torch.ops import (
+        compute_row_layout, convert_from_rows, convert_to_rows,
+    )
+    from spark_rapids_jni_tpu_torch.ops import kernels, row_mxu
+    from spark_rapids_jni_tpu_torch.table import Table
+    from spark_rapids_jni_tpu_torch.utils import (
+        random_table, strings_with_lengths,
+    )
+    schemas = {
+        "one_int8": [INT8], "int64_only": [INT64, INT64],
+        "odd_int16": [INT16] * 3,
+        "all_fixed": [INT64, FLOAT64, UINT64, INT32, UINT32, FLOAT32, INT16,
+                      UINT16, INT8, UINT8, BOOL8, decimal32(2),
+                      decimal64(-1)]}
+    # None: no masks; then all, none, most and few rows valid
+    null_modes = (None, 0.0, 1.0, 0.1, 0.9)
+    cases = 0
+    for name, dtypes in schemas.items():
+        layout = compute_row_layout(dtypes)
+        for n in (1, 33, 257, 2125):
+            for nulls in null_modes:
+                t = random_table(dtypes, n, seed=n, null_probability=nulls)
+                for start in sorted({0, 1, 3, n // 3 | 1, n - 1} & set(
+                        range(n))):
+                    for size in sorted({n - start, (n - start) // 2}):
+                        k = kernels.pack_planes(t, layout, start, size)
+                        p = kernels.pack_planes_plain(t, layout, start, size)
+                        errs["pack_planes"] = max(errs["pack_planes"],
+                                                  max_abs_err(k, p))
+                        check(torch.equal(k, p),
+                              f"pack {name} n={n} nulls={nulls} "
+                              f"start={start} size={size}")
+                        cases += 1
+                gc = row_mxu.table_to_grouped(t, layout)
+                check(torch.equal(row_mxu.to_rows_fixed(t, layout),
+                                  kernels.grouped_encode(
+                                      gc.planes, gc.vmask, layout, 0, n)),
+                      f"two-stage {name} n={n} nulls={nulls} != K1")
+                cases += 1
+    sdtypes = [INT64, STRING, INT16, STRING, INT8, STRING, BOOL8]
+    slayout = compute_row_layout(sdtypes)
+    for n in (1, 31, 2125):
+        for nulls in null_modes:
+            fixed = iter(random_table([d for d in sdtypes if not d.is_string],
+                                      n, seed=n, null_probability=nulls)
+                         .columns)
+            cols = [next(fixed) if W is None else strings_with_lengths(
+                (torch.arange(n, device=CARD) % (W + 1)).to(torch.int32), W,
+                seed=W, null_probability=nulls)
+                for W in (None, 0, None, 4, None, 32, None)]
+            t = Table(tuple(cols))
+            [rows] = convert_to_rows(t)
+            check(rows.str_widths == (0, 4, 32), f"widths {rows.str_widths}")
+            _hold_decode(rows.rows2d(rows.row_size), slayout, errs,
+                         f"padded n={n} nulls={nulls}")
+            _check_strings_equal(t, convert_from_rows(rows, sdtypes),
+                                 f"padded n={n} nulls={nulls}")
+            cases += 1
+    emit(phase="pack_edges", cases=cases)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; "
@@ -717,6 +1109,16 @@ def main():
         check(path_launches[name] > 0,
               f"{name} never launched on its paths: {path_launches}")
 
+    # -- dense-padded strings, then the two-stage encode above the cap
+    add_launches(phase_strings_1m(errs, timing))
+    torch.cuda.empty_cache()
+    add_launches(phase_strings_2m(errs))
+    torch.cuda.empty_cache()
+    add_launches(phase_pack_planes_6m(dtypes, errs, timing))
+    torch.cuda.empty_cache()
+    check(path_launches["pack_planes"] > 0,
+          f"pack_planes never launched on its path: {path_launches}")
+
     # -- 64-bit offsets: random planes of N_WIDE rows, so that the index of
     # the last data plane's words (read by the encode) and of the last
     # decoded plane's words (written by the decode) pass 2^31 elements, and
@@ -791,6 +1193,7 @@ def main():
             assert_tables_equivalent(t, back, check_nulls=False)
     emit(phase="edges", cases=cases, max_abs_err=errs)
     phase_hash_edges(errs)
+    phase_pack_edges(errs)
 
     for name, _ in KERNELS:
         timing[name]["launches"] = path_launches[name]

@@ -6,8 +6,10 @@ the reference; this package imports neither JAX nor that package.
 - ``table``: ``Column``/``Table`` containers as torch tensors, fixed-width
   and dense-padded string columns.
 - ``ops.row_conversion``: JCUDF row-format <-> column conversion, the
-  flagship op (reference ``src/main/cpp/src/row_conversion.cu``).
-- ``ops.row_mxu``: word plans and the plane-major table backing.
+  flagship op (reference ``src/main/cpp/src/row_conversion.cu``), for
+  fixed-width and dense-padded string tables, and ``compact_rows_host``.
+- ``ops.row_mxu``: word plans, the plane-major table backing and the
+  two-stage encode of tables too large to pack whole.
 - ``ops.hashing``: Spark's murmur3 and xxhash64 over columns, and hash
   partitioning (``hash_partition_ids``).
 - ``ops.spark_bloom``: Spark's wire-compatible bloom filter and its probe
@@ -15,10 +17,10 @@ the reference; this package imports neither JAX nor that package.
 - ``ops.kernels``: the build of the hand-written CUDA kernels (``csrc/``)
   and the row-conversion kernels' wrappers and plain versions;
   ``ops.hash_kernels``: those of the hash and bloom kernels.
-- ``utils.datagen``: seeded random fixed-width tables and padded string
-  columns, made on the device.
-- ``interop``: tables and backings to and from numpy, to hold the port
-  against the JAX package on the same data.
+- ``utils.datagen``: seeded random tables (fixed-width and padded string
+  columns), made on the device.
+- ``interop``: tables, backings and row batches to and from numpy, to hold
+  the port against the JAX package on the same data.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """

@@ -6,7 +6,9 @@ JAX package's tables are handed over as numpy arrays, one tuple per column:
 and ``("string", chars2d, lens, packed validity or None)`` for a
 dense-padded string column, the name being ``repr`` of the column type,
 which both packages print alike.  Its ``GroupedColumns`` cross as uint32
-planes plus packed masks.  Nothing here imports JAX: the caller does the
+planes plus packed masks, its ``RowsColumn`` batches (fixed-width or
+dense-padded) as their bytes and offsets with the padded layout's row size
+and string widths.  Nothing here imports JAX: the caller does the
 ``np.asarray``.
 """
 
@@ -20,6 +22,7 @@ import torch
 from spark_rapids_jni_tpu_torch.table import (
     Column, DType, Table, dtype_from_name, resolve_device,
 )
+from spark_rapids_jni_tpu_torch.ops.row_conversion import RowsColumn
 from spark_rapids_jni_tpu_torch.ops.row_layout import compute_row_layout
 from spark_rapids_jni_tpu_torch.ops.row_mxu import GroupedColumns
 
@@ -39,7 +42,8 @@ def _column(arrays: ColumnArrays, dev: torch.device) -> Column:
     if len(arrays) != 4:
         raise NotImplementedError(
             "only dense-padded string columns (chars2d, lens) cross; "
-            "Arrow-layout strings wait for the strings slice of the port")
+            "Arrow-layout strings wait for a later strings slice of the "
+            "port")
     _, chars2d, lens, validity = arrays
     if validity is not None:
         validity = torch.from_numpy(np.array(validity, np.uint8)).to(dev)
@@ -89,3 +93,28 @@ def grouped_to_numpy(gc: GroupedColumns) -> Tuple[np.ndarray, np.ndarray]:
     masks)."""
     return (gc.planes.cpu().numpy().view(np.uint32),
             gc.vmask.cpu().numpy())
+
+
+def rows_from_numpy(data: np.ndarray, offsets: np.ndarray,
+                    row_size: Optional[int] = None,
+                    str_widths: Optional[Sequence[int]] = None,
+                    device=None) -> RowsColumn:
+    """A port batch from uint8 row bytes (``[n, row_bytes]`` or flat),
+    int32 ``[n + 1]`` offsets and, for a dense-padded batch, its row size
+    and string widths."""
+    dev = resolve_device(device)
+    widths = None if str_widths is None else tuple(int(w) for w in
+                                                   str_widths)
+    return RowsColumn(
+        torch.from_numpy(np.array(data, np.uint8)).to(dev),
+        torch.from_numpy(np.array(offsets, np.int32)).to(dev),
+        None if row_size is None else int(row_size), widths)
+
+
+def rows_to_numpy(rows: RowsColumn) -> Tuple[np.ndarray, np.ndarray,
+                                             Optional[int],
+                                             Optional[Tuple[int, ...]]]:
+    """Inverse of :func:`rows_from_numpy`: (bytes, offsets, row size,
+    string widths)."""
+    return (rows.data.cpu().numpy(), rows.offsets.cpu().numpy(),
+            rows.row_size, rows.str_widths)

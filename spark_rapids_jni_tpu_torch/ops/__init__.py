@@ -1,5 +1,6 @@
-"""Ops of the PyTorch port: row conversion (fixed-width tables), Spark
-hashing and hash partitioning, and the Spark bloom filter."""
+"""Ops of the PyTorch port: row conversion (fixed-width and dense-padded
+string tables), Spark hashing and hash partitioning, and the Spark bloom
+filter."""
 
 from spark_rapids_jni_tpu_torch.ops.row_layout import (  # noqa: F401
     JCUDF_ROW_ALIGNMENT, MAX_BATCH_BYTES, MAX_ROW_SIZE, RowLayout,
@@ -7,14 +8,18 @@ from spark_rapids_jni_tpu_torch.ops.row_layout import (  # noqa: F401
 )
 from spark_rapids_jni_tpu_torch.ops.row_conversion import (  # noqa: F401
     RowsColumn,
+    compact_rows_host,
     convert_from_rows,
     convert_from_rows_fixed_width_optimized,
     convert_from_rows_grouped,
     convert_to_rows,
     convert_to_rows_fixed_width_optimized,
     convert_to_rows_grouped,
+    padded_variable_layout,
+    plan_equal_batches,
     plan_fixed_batches,
     plan_grouped_batches,
+    plan_variable_batches,
 )
 from spark_rapids_jni_tpu_torch.ops.hashing import (  # noqa: F401
     DEFAULT_SEED, hash_partition_ids, murmur3_hash, pmod, xxhash64,

@@ -7,6 +7,10 @@ row-conversion kernels' wrappers and plain PyTorch versions.
 - :func:`decode_planes` (``csrc/row_decode.cu``) replaces
   ``row_mxu.py::_fused_decode_kernel``: JCUDF rows to word planes and packed
   validity.
+- :func:`pack_planes` (``csrc/pack_planes.cu``) replaces
+  ``row_mxu.py::_pack_kernel``: a batch of a table's columns to its forward
+  word planes, validity quads included (the first stage of the two-stage
+  encode, ``row_mxu.to_rows_fixed``).
 - The hash and bloom-probe kernels (``csrc/murmur3.cu``,
   ``csrc/xxhash64.cu``, ``csrc/bloom_probe.cu``) build here too; their
   wrappers and plain versions are in :mod:`.hash_kernels`.
@@ -35,13 +39,15 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from spark_rapids_jni_tpu_torch.table import pack_bools
+from spark_rapids_jni_tpu_torch.table import (
+    Table, bits_view, pack_bools, valid_bits,
+)
 from spark_rapids_jni_tpu_torch.ops import word_plan
 from spark_rapids_jni_tpu_torch.ops.row_layout import RowLayout
 
 # launches of each kernel since the last reset_launches()
-launches = {"grouped_encode": 0, "decode_planes": 0, "murmur3_cols": 0,
-            "xxhash64_cols": 0, "bloom_might_contain": 0}
+launches = {"grouped_encode": 0, "decode_planes": 0, "pack_planes": 0,
+            "murmur3_cols": 0, "xxhash64_cols": 0, "bloom_might_contain": 0}
 
 
 def reset_launches():
@@ -56,7 +62,8 @@ def reset_launches():
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = {"grouped_encode": "row_encode.cu", "decode_planes": "row_decode.cu",
-           "murmur3_cols": "murmur3.cu", "xxhash64_cols": "xxhash64.cu",
+           "pack_planes": "pack_planes.cu", "murmur3_cols": "murmur3.cu",
+           "xxhash64_cols": "xxhash64.cu",
            "bloom_might_contain": "bloom_probe.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -93,6 +100,7 @@ _ENTRY = {
     "decode_planes": ("srj_decode_planes", [
         _VP, _I64, _I32, _VP, _I32, _I32, _I32, _I64, _VP, _VP, _I64, _I32,
         _VP]),
+    "pack_planes": ("srj_pack_planes", [_VP, _I64, _I64, _VP, _I32, _VP]),
     "murmur3_cols": ("srj_murmur3_cols", [
         _VP, _I32, _I64, ctypes.c_uint32, _VP, _I32, _VP]),
     "xxhash64_cols": ("srj_xxhash64_cols", [
@@ -367,3 +375,131 @@ def decode_planes(rows2d: torch.Tensor, layout: RowLayout
                layout.validity_offset, n, planes.data_ptr(),
                vmask.data_ptr(), vmask.shape[1], dev.index, stream_of(dev))
     return planes, vmask
+
+
+# ---------------------------------------------------------------------------
+# K3: pack_planes
+# ---------------------------------------------------------------------------
+
+# the most columns one launch takes (csrc/pack_planes.cu's kMaxPackCols)
+MAX_PACK_COLS = 1024
+
+
+class _PackCols(ctypes.Structure):
+    """csrc/pack_planes.cu's SrjPackCols."""
+    _fields_ = [("data", ctypes.c_void_p * MAX_PACK_COLS),
+                ("valid", ctypes.c_void_p * MAX_PACK_COLS),
+                ("n8", ctypes.c_int32), ("n4", ctypes.c_int32),
+                ("n2", ctypes.c_int32), ("n1", ctypes.c_int32)]
+
+
+def _check_pack(table: Table, layout: RowLayout, start: int, size: int):
+    _check(tuple(table.dtypes) == layout.dtypes,
+           "the table's types are not the layout's")
+    _check(0 < layout.num_columns <= MAX_PACK_COLS,
+           f"the pack takes 1 to {MAX_PACK_COLS} columns, got "
+           f"{layout.num_columns}")
+    if not all(dt.is_fixed_width and dt.itemsize in (1, 2, 4, 8)
+               for dt in layout.dtypes):
+        raise ValueError(f"the pack takes columns of 1, 2, 4 and 8 bytes, "
+                         f"got {list(layout.dtypes)}")
+    n, dev = table.num_rows, table.device
+    # the messages are built only on failure: built for every column on
+    # every call they cost time quadratic in the column count
+    if any(c.num_rows != n or c.device != dev for c in table.columns):
+        raise ValueError(f"columns of {[c.num_rows for c in table.columns]} "
+                         f"rows on {[str(c.device) for c in table.columns]}")
+    if not all(c.data.is_contiguous()
+               and c.data.data_ptr() % c.data.element_size() == 0
+               for c in table.columns):
+        raise ValueError("column data must be contiguous and aligned to "
+                         "its element size")
+    if not all(v is None or (v.dtype == torch.uint8 and v.dim() == 1
+                             and v.shape[0] >= (n + 7) // 8
+                             and v.is_contiguous())
+               for v in (c.validity for c in table.columns)):
+        raise ValueError(f"validity must be contiguous uint8 "
+                         f"[>= {(n + 7) // 8}]")
+    _check(0 <= start and 0 <= size and start + size <= n,
+           f"batch [{start}, {start + size}) outside {n} rows")
+
+
+def pack_data_words(table: Table, layout: RowLayout, num_words: int,
+                    start: int, size: int) -> torch.Tensor:
+    """int32 ``[num_words, size]``: the forward plan's data words of table
+    rows ``[start, start + size)`` in its first planes, zeros in the rest.
+    Plain tensor copies, one per column: word-sized columns copy into whole
+    planes, narrower ones into their bytes of a plane (a 64-bit column's
+    planes are its little-endian lo and hi words)."""
+    plan = word_plan._forward_plan(layout)[0]
+    planes = torch.zeros((num_words, size), dtype=torch.int32,
+                         device=table.device)
+    plane_bytes = planes.view(torch.uint8).view(num_words, size, 4)
+    for i, col in enumerate(table.columns):
+        sz = layout.col_sizes[i]
+        w, b = plan.col_word[i], plan.col_byte[i]
+        data = bits_view(col.data)[start:start + size]
+        if sz == 8:
+            planes[w:w + 2] = data.view(torch.int32).view(size, 2).T
+        elif sz == 4:
+            planes[w] = data
+        else:
+            plane_bytes[w, :, b:b + sz] = data.view(torch.uint8).view(size,
+                                                                      sz)
+    return planes
+
+
+def pack_planes_plain(table: Table, layout: RowLayout, start: int,
+                      size: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`pack_planes`, the JAX package's
+    ``row_mxu._pack_planes``: the data words (:func:`pack_data_words`),
+    then each column's validity as a 0/1 byte of its quad."""
+    _check_pack(table, layout, start, size)
+    plan = word_plan._forward_plan(layout)[0]
+    planes = pack_data_words(table, layout, plan.num_words, start, size)
+    # column c's 0/1 byte is byte c % 4 of the c // 4-th validity word
+    nc, vw0 = layout.num_columns, plan.validity_word[0]
+    nq = plan.num_words - vw0
+    quads = torch.nn.functional.pad(valid_bits(table.columns, start, size),
+                                    (0, 0, 0, 4 * nq - nc))
+    planes[vw0:].view(torch.uint8).view(nq, size, 4).copy_(
+        quads.view(nq, 4, size).permute(0, 2, 1))
+    return planes
+
+
+def _pack_cols(table: Table, layout: RowLayout) -> _PackCols:
+    cols = _PackCols()
+    by_size = {sz: [c for c, s in zip(table.columns, layout.col_sizes)
+                    if s == sz] for sz in (8, 4, 2, 1)}
+    cols.n8, cols.n4, cols.n2, cols.n1 = (len(by_size[sz])
+                                          for sz in (8, 4, 2, 1))
+    data, valid = cols.data, cols.valid     # views of the structure
+    for k, c in enumerate(by_size[8] + by_size[4] + by_size[2]
+                          + by_size[1]):
+        data[k] = c.data.data_ptr()
+    for k, c in enumerate(table.columns):
+        valid[k] = None if c.validity is None else c.validity.data_ptr()
+    return cols
+
+
+def pack_planes(table: Table, layout: RowLayout, start: int,
+                size: int) -> torch.Tensor:
+    """K3: the forward word planes, int32 ``[W, size]``, of table rows
+    ``[start, start + size)`` (``row_mxu._forward_plan``): 8-byte columns
+    as lo/hi plane pairs, then 4-byte columns, 2-byte columns two to a
+    word and 1-byte columns four to a word, each in table order, then the
+    validity quads (one 0/1 byte per column, four to a word, pad bytes
+    zero).  Each column is read in place at ``start``, which may be any
+    row; columns of 1, 2, 4 and 8 bytes only."""
+    _check_pack(table, layout, start, size)
+    dev = table.device
+    if dev.type == "cpu":
+        return pack_planes_plain(table, layout, start, size)
+    _check(dev.type == "cuda", f"no kernel for device {dev}")
+    num_words = word_plan._forward_plan(layout)[0].num_words
+    out = torch.empty((num_words, size), dtype=torch.int32, device=dev)
+    if size:
+        cols = _pack_cols(table, layout)
+        launch("pack_planes", ctypes.addressof(cols), start, size,
+               out.data_ptr(), dev.index, stream_of(dev))
+    return out

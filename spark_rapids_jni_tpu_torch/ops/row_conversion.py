@@ -1,33 +1,48 @@
-"""Table <-> JCUDF row-blob conversion, fixed-width tables.
+"""Table <-> JCUDF row-blob conversion: fixed-width tables and dense-padded
+string tables.
 
 The PyTorch counterpart of ``spark_rapids_jni_tpu.ops.row_conversion``
 (reference ``src/main/cpp/src/row_conversion.cu``; public API
-``row_conversion.hpp:27-49``).  Every fixed-width encode runs through the
-plane-major backing and the encode kernel (``row_mxu.table_to_grouped``,
-then ``kernels.grouped_encode`` once per batch); every decode through the
-decode kernel (``kernels.decode_planes``).  The JAX package's batching
-policy on the TPU main path is kept on every device: batches of at most
-2^31 - 1 bytes, equal-sized and aligned to 1024 rows, or, for tables under
-1024 rows or a ``size_limit`` below 1024 rows, the 32-row-aligned policy
-of its XLA path.
+``row_conversion.hpp:27-49``).
+
+- Fixed-width encode, as the JAX package dispatches it on the TPU: a table
+  whose resident pack (column bytes plus one bit a field) stays within
+  :data:`_FUSED_PREP_CAP` is packed once into its plane-major backing
+  (``row_mxu.table_to_grouped``) and encoded by one encode kernel per
+  batch (``kernels.grouped_encode``), in equal batches of at most 2^31 - 1
+  bytes aligned to 1024 rows (tables under 1024 rows, or a ``size_limit``
+  below 1024 rows, take equal 32-row-aligned batches of at most
+  ``min(size_limit, 1 GiB)``).  A larger table is encoded batch by batch
+  in two stages (``row_mxu.to_rows_fixed``: the pack kernel
+  ``kernels.pack_planes``, then the forward byte map), in equal
+  32-row-aligned batches of at most ``min(size_limit, 1 GiB)``, so that
+  only one batch is held beside the table.
+- Fixed-width decode: one decode kernel a batch (``kernels.decode_planes``).
+- Dense-padded strings: every row has the same size, the fixed section
+  (each string slot's uint32 pair holding its char slot's start and the
+  string's length) then one ``W``-byte char slot per string column, slack
+  past each length zero, rows rounded to 8 bytes.  The encode is torch
+  copies; the decode runs the decode kernel over the rows' fixed section
+  (the row stride is the padded row size) and slices the char slots.
+  :func:`compact_rows_host` turns a padded batch into the compact JCUDF
+  wire bytes on the host.  Compact string blobs, Arrow-layout string
+  columns and width-capped columns wait for a later slice of the port.
 
 ``convert_{to,from}_rows_fixed_width_optimized`` are the independent byte
 gather oracle (the reference's legacy path), in plain PyTorch.
-
-String columns are the next slice of the port: a schema holding one raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from spark_rapids_jni_tpu_torch.table import (
     BITS_DTYPES, Column, DType, Table, bits_view, pack_bools, resolve_device,
+    valid_bits,
 )
 from spark_rapids_jni_tpu_torch.ops import kernels, row_mxu
 from spark_rapids_jni_tpu_torch.ops.row_layout import (
@@ -45,14 +60,26 @@ class RowsColumn:
     returns (``row_conversion.cu:1871-1887``): the row bytes plus int32 row
     offsets (``offsets[i]`` .. ``offsets[i+1]`` is row ``i``).  ``data`` is
     uint8 ``[num_rows, row_size]`` as the encode produces it, or a flat
-    ``[total_bytes]`` wire blob."""
+    ``[total_bytes]`` wire blob.
+
+    ``row_size``/``str_widths`` are set on dense-padded string batches:
+    every row takes ``row_size`` bytes, string column ``si`` a fixed
+    ``str_widths[si]``-byte char slot that its (offset, length) pair
+    addresses, so the blob is self-describing JCUDF with the compact wire
+    form's content plus slack in each row."""
 
     data: torch.Tensor
     offsets: torch.Tensor
+    row_size: Optional[int] = None
+    str_widths: Optional[Tuple[int, ...]] = None
 
     @property
     def num_rows(self) -> int:
         return self.offsets.shape[0] - 1
+
+    @property
+    def is_padded(self) -> bool:
+        return self.row_size is not None
 
     def rows2d(self, row_size: int) -> torch.Tensor:
         """``[n, row_size]`` view (2-D passthrough; flat blobs reshape)."""
@@ -64,6 +91,16 @@ class RowsColumn:
         offs = self.offsets.cpu().numpy()
         flat = self.data.reshape(-1)[int(offs[i]):int(offs[i + 1])]
         return flat.cpu().numpy().tobytes()
+
+
+# the most bytes one batch of the JAX package's batch-sliced fixed-width
+# encodes holds (its XLA path's transient bound, kept by its two-stage path)
+_XLA_CHUNK = 1 << 30
+# the largest resident pack (column bytes plus one bit a field) that
+# convert_to_rows packs whole into the plane-major backing; above it the
+# table is encoded batch by batch in two stages (the JAX package's
+# SRJ_FUSED_PREP_CAP default, here a constant)
+_FUSED_PREP_CAP = 4 << 30
 
 
 def _offsets(num_rows: int, row_size: int, device) -> torch.Tensor:
@@ -99,6 +136,49 @@ def plan_fixed_batches(num_rows: int, row_size: int,
     return batches
 
 
+def plan_variable_batches(row_sizes: np.ndarray,
+                          size_limit: int = MAX_BATCH_BYTES
+                          ) -> List[Tuple[int, int]]:
+    """Split rows with per-row sizes into batches of <= size_limit bytes,
+    32-row aligned (the JAX package's ``plan_variable_batches``)."""
+    n = len(row_sizes)
+    if n == 0:
+        return [(0, 0)]
+    cum = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(row_sizes, out=cum[1:])
+    batches = []
+    start = 0
+    while start < n:
+        # largest end with cum[end] - cum[start] <= limit
+        end = int(np.searchsorted(cum, cum[start] + size_limit,
+                                  side="right")) - 1
+        if end < n:
+            end = max(start + 32, end // 32 * 32)
+        end = min(end, n)
+        if end <= start:
+            end = min(n, start + 32)
+        if cum[end] - cum[start] > size_limit and end - start <= 32:
+            raise ValueError("rows too large for a single batch")
+        batches.append((start, end))
+        start = end
+    return batches
+
+
+def plan_equal_batches(num_rows: int, row_size: int,
+                       chunk: int) -> List[Tuple[int, int]]:
+    """(start, size) of each batch under the JAX package's policy for its
+    batch-sliced encodes (the XLA and two-stage fixed-width paths, the
+    padded string path): one batch when ``plan_fixed_batches`` needs one,
+    else the fewest equal batches, 32-row aligned, of at most ``chunk``
+    bytes."""
+    if len(plan_fixed_batches(num_rows, row_size, chunk)) == 1:
+        return [(0, num_rows)]
+    nb = -(-num_rows * row_size // chunk)
+    per = min((-(-num_rows // nb) + 31) // 32 * 32,
+              chunk // row_size // 32 * 32)
+    return [(s, min(per, num_rows - s)) for s in range(0, num_rows, per)]
+
+
 def plan_grouped_batches(num_rows: int, row_size: int,
                          size_limit: int = MAX_BATCH_BYTES
                          ) -> List[Tuple[int, int]]:
@@ -106,20 +186,15 @@ def plan_grouped_batches(num_rows: int, row_size: int,
     policy (``convert_to_rows_grouped``).  Equal batches aligned to 1024
     rows, at most ``min(size_limit, 2^31 - 1)`` bytes each; tables under
     1024 rows, or a limit below 1024 rows, take its XLA path's policy:
-    equal 32-row-aligned batches of at most ``min(size_limit, 1 GiB)``."""
+    :func:`plan_equal_batches` of at most ``min(size_limit, 1 GiB)``."""
     align = row_mxu._FUSE_TILE
     chunk = min(size_limit, MAX_BATCH_BYTES)
     per_max = chunk // row_size // align * align
-    if num_rows >= align and per_max:
-        nb = -(-num_rows * row_size // chunk)
-        per = min((-(-num_rows // nb) + align - 1) // align * align, per_max)
-    else:
-        chunk = min(size_limit, 1 << 30)
-        if len(plan_fixed_batches(num_rows, row_size, chunk)) == 1:
-            return [(0, num_rows)]
-        nb = -(-num_rows * row_size // chunk)
-        per = min((-(-num_rows // nb) + 31) // 32 * 32,
-                  chunk // row_size // 32 * 32)
+    if num_rows < align or not per_max:
+        return plan_equal_batches(num_rows, row_size,
+                                  min(size_limit, _XLA_CHUNK))
+    nb = -(-num_rows * row_size // chunk)
+    per = min((-(-num_rows // nb) + align - 1) // align * align, per_max)
     return [(s, min(per, num_rows - s)) for s in range(0, num_rows, per)]
 
 
@@ -127,25 +202,44 @@ def plan_grouped_batches(num_rows: int, row_size: int,
 # Public API: the kernel path
 # ---------------------------------------------------------------------------
 
-def _fixed_layout(dtypes: Sequence[DType]) -> RowLayout:
+def _grouped_layout(dtypes: Sequence[DType]) -> RowLayout:
     layout = compute_row_layout(dtypes)
     if layout.has_strings:
-        raise NotImplementedError(
-            "string columns are not ported yet: variable-width row "
-            "conversion is the next slice of the PyTorch port")
+        raise ValueError("the grouped forms cover fixed-width tables; "
+                         "string tables use convert_to_rows and "
+                         "convert_from_rows")
     return layout
 
 
 def convert_to_rows(table: Table, *, size_limit: int = MAX_BATCH_BYTES,
                     device=None) -> List[RowsColumn]:
-    """Convert a fixed-width table to JCUDF row batches (reference
-    ``convert_to_rows``, ``row_conversion.cu:1902-1960``): one pack into
-    the plane-major backing, then one encode kernel per batch.  Runs on
-    ``device`` (default: the CUDA card)."""
+    """Convert a table to JCUDF row batches (reference ``convert_to_rows``,
+    ``row_conversion.cu:1902-1960``) on ``device`` (default: the CUDA
+    card).  A table with string columns takes the dense-padded encode; a
+    fixed-width one one pack and one encode kernel per batch, or above
+    :data:`_FUSED_PREP_CAP` the two-stage encode batch by batch (see the
+    module docstring)."""
     dev = resolve_device(device)
-    layout = _fixed_layout(table.dtypes)
-    gc = row_mxu.table_to_grouped(table.to(dev), layout)
-    return _encode_batches(gc, size_limit)
+    layout = compute_row_layout(table.dtypes)
+    table = table.to(dev)
+    if layout.has_strings:
+        return _to_rows_variable_padded(table, layout, size_limit)
+    prep_bytes = (sum(c.data.numel() * c.data.element_size()
+                      for c in table.columns)
+                  + layout.num_columns * table.num_rows // 8)
+    if prep_bytes > _FUSED_PREP_CAP:
+        return _to_rows_two_stage(table, layout, size_limit)
+    return _encode_batches(row_mxu.table_to_grouped(table, layout),
+                           size_limit)
+
+
+def _to_rows_two_stage(table: Table, layout: RowLayout,
+                       size_limit: int) -> List[RowsColumn]:
+    rs = layout.fixed_row_size
+    return [RowsColumn(row_mxu.to_rows_fixed(table, layout, start, size),
+                       _offsets(size, rs, table.device))
+            for start, size in plan_equal_batches(
+                table.num_rows, rs, min(size_limit, _XLA_CHUNK))]
 
 
 def convert_to_rows_grouped(gc: row_mxu.GroupedColumns, *,
@@ -155,7 +249,7 @@ def convert_to_rows_grouped(gc: row_mxu.GroupedColumns, *,
     grouped decode) straight to JCUDF row batches: one encode kernel per
     batch, traffic exactly planes in and rows out."""
     dev = resolve_device(device)
-    _fixed_layout(gc.layout.dtypes)
+    _grouped_layout(gc.layout.dtypes)
     return _encode_batches(gc.to(dev), size_limit)
 
 
@@ -170,24 +264,32 @@ def _encode_batches(gc: row_mxu.GroupedColumns,
     return out
 
 
-def _rows2d_on(rows: RowsColumn, layout: RowLayout, dev) -> torch.Tensor:
+def _rows2d_on(rows: RowsColumn, row_size: int, dev) -> torch.Tensor:
     n = rows.num_rows
-    if rows.data.numel() != n * layout.fixed_row_size:
+    if rows.data.numel() != n * row_size:
         raise ValueError(
             f"row blob holds {rows.data.numel()} bytes but offsets "
-            f"describe {n} rows of {layout.fixed_row_size}")
-    return rows.rows2d(layout.fixed_row_size).to(dev)
+            f"describe {n} rows of {row_size}")
+    return rows.rows2d(row_size).to(dev)
 
 
 def convert_from_rows(rows: RowsColumn, dtypes: Sequence[DType], *,
                       device=None) -> Table:
-    """Convert one batch of fixed-width JCUDF rows back to a table
-    (reference ``convert_from_rows``, ``row_conversion.cu:2032-2250``):
-    one decode kernel, then one column per field."""
+    """Convert one batch of JCUDF rows back to a table (reference
+    ``convert_from_rows``, ``row_conversion.cu:2032-2250``): one decode
+    kernel, then one column per field; a dense-padded string batch's char
+    slots are sliced out after it."""
     dev = resolve_device(device)
-    layout = _fixed_layout(dtypes)
+    layout = compute_row_layout(dtypes)
+    if layout.has_strings:
+        if not rows.is_padded:
+            raise NotImplementedError(
+                "compact JCUDF string blobs (the Arrow-layout decode) wait "
+                "for a later slice of the PyTorch port; this one decodes "
+                "dense-padded batches")
+        return _from_rows_variable_padded(rows, layout, dev)
     return Table(tuple(row_mxu.from_rows_fixed(
-        _rows2d_on(rows, layout, dev), layout)))
+        _rows2d_on(rows, layout.fixed_row_size, dev), layout)))
 
 
 def convert_from_rows_grouped(rows: RowsColumn, dtypes: Sequence[DType], *,
@@ -196,9 +298,220 @@ def convert_from_rows_grouped(rows: RowsColumn, dtypes: Sequence[DType], *,
     backing (``[W, n]`` word planes plus packed validity); consumers
     extract only the columns they touch with ``.column(i)``."""
     dev = resolve_device(device)
-    layout = _fixed_layout(dtypes)
-    return row_mxu.from_rows_fixed_grouped(_rows2d_on(rows, layout, dev),
-                                           layout)
+    layout = _grouped_layout(dtypes)
+    return row_mxu.from_rows_fixed_grouped(
+        _rows2d_on(rows, layout.fixed_row_size, dev), layout)
+
+
+# ---------------------------------------------------------------------------
+# Dense-padded strings
+# ---------------------------------------------------------------------------
+
+def _string_cols(table: Table) -> List[Column]:
+    return [c for c in table.columns if c.dtype.is_string]
+
+
+def padded_variable_layout(layout: RowLayout, widths: Sequence[int]):
+    """(slot starts, fe_pad, row_size) of padded rows: the fixed section
+    padded to a 4-byte word (``fe_pad``), then one ``widths[si]``-byte char
+    slot per string column, the row rounded up to 8 bytes."""
+    fe_pad = (layout.fixed_end + 3) // 4 * 4
+    starts = []
+    pos = fe_pad
+    for w in widths:
+        if w % 4:
+            raise ValueError(f"padded char width {w} not a multiple of 4")
+        starts.append(pos)
+        pos += w
+    row_size = (pos + 7) // 8 * 8
+    return tuple(starts), fe_pad, row_size
+
+
+def _assemble_fixed_variable(out: torch.Tensor, table: Table,
+                             layout: RowLayout, slot_starts: Sequence[int],
+                             start: int, size: int):
+    """Write rows ``[start, start + size)``'s fixed sections into ``out``
+    (uint8 ``[size, >= fixed_end]``, zeros where nothing is written): each
+    fixed-width column's bytes, each string column's uint32 pair (its char
+    slot's start, the row's length) and the validity bytes."""
+    si = 0
+    for i, col in enumerate(table.columns):
+        s, sz = layout.col_starts[i], layout.col_sizes[i]
+        # every field is aligned to its size in the row and the row size is
+        # a multiple of 8, so each field is one element of a typed view
+        if col.dtype.is_string:
+            pair = out[:, s:s + 8].view(torch.int32)
+            pair[:, 0] = slot_starts[si]
+            pair[:, 1] = col.str_lens()[start:start + size]
+            si += 1
+        else:
+            out[:, s:s + sz].view(BITS_DTYPES[sz])[:, 0] = \
+                bits_view(col.data)[start:start + size]
+    vo = layout.validity_offset
+    out[:, vo:vo + layout.validity_bytes] = _validity_row_bytes(
+        table, layout, start, size)
+
+
+def padded_rows2d(table: Table, layout: RowLayout,
+                  slot_starts: Tuple[int, ...], row_size: int,
+                  start: int = 0, size: Optional[int] = None
+                  ) -> torch.Tensor:
+    """uint8 ``[size, row_size]`` dense-padded JCUDF rows of table rows
+    ``[start, start + size)``: the fixed section, then each string column's
+    chars in its slot with the slack past each length zeroed, so that the
+    blob does not depend on what the char matrix holds there.  Torch
+    copies into one zeroed buffer, one a column."""
+    if size is None:
+        size = table.num_rows - start
+    out = torch.zeros((size, row_size), dtype=torch.uint8,
+                      device=table.device)
+    _assemble_fixed_variable(out, table, layout, slot_starts, start, size)
+    for s, c in zip(slot_starts, _string_cols(table)):
+        w = c.chars2d.shape[1]
+        if not w:
+            continue
+        slot = out[:, s:s + w]
+        slot.copy_(c.chars2d[start:start + size])
+        slot.masked_fill_(torch.arange(w, device=out.device)
+                          >= c.str_lens()[start:start + size, None], 0)
+    return out
+
+
+def _to_rows_variable_padded(table: Table, layout: RowLayout,
+                             size_limit: int) -> List[RowsColumn]:
+    scols = _string_cols(table)
+    for c in scols:
+        if not c.is_padded:
+            raise NotImplementedError(
+                "Arrow-layout string columns wait for a later slice of the "
+                "PyTorch port; this one encodes dense-padded strings")
+    widths = tuple(c.chars2d.shape[1] for c in scols)
+    slot_starts, _, row_size = padded_variable_layout(layout, widths)
+    # padded rows are uniform: the only bound on a batch is the int32
+    # offsets' 2^31 - 1 bytes
+    chunk = min(size_limit, MAX_BATCH_BYTES)
+    return [RowsColumn(padded_rows2d(table, layout, slot_starts, row_size,
+                                     start, size),
+                       _offsets(size, row_size, table.device), row_size,
+                       widths)
+            for start, size in plan_equal_batches(table.num_rows, row_size,
+                                                  chunk)]
+
+
+def _cols_from_planes(planes: torch.Tensor, vmask: torch.Tensor,
+                      layout: RowLayout):
+    """Every column's data (None for strings), packed validity mask and,
+    for each string column, its lengths: from decoded word planes
+    ``[W, n]``, where a string slot is an (offset, length) plane pair."""
+    plan = row_mxu._inverse_plan(layout)[0]
+    masks = [vmask[i] for i in range(layout.num_columns)]
+    datas, str_lens = [], []
+    for i, dt in enumerate(layout.dtypes):
+        if dt.is_string:
+            datas.append(None)
+            str_lens.append(planes[plan.col_word[i] + 1])  # the hi plane
+        else:
+            datas.append(row_mxu.extract_plane_column(planes, plan, layout,
+                                                      i))
+    return datas, masks, str_lens
+
+
+def padded_cols_from_rows(rows2d: torch.Tensor, layout: RowLayout,
+                          str_widths: Tuple[int, ...]):
+    """Decode padded rows ``[n, row_size]`` into (datas, masks,
+    [(chars2d, lens)]): the decode kernel over the rows' fixed section
+    (row stride ``row_size``), then each char slot sliced, its slack
+    zeroed (a foreign blob may carry anything past each length)."""
+    slot_starts, _, _ = padded_variable_layout(layout, str_widths)
+    planes, vmask = kernels.decode_planes(rows2d, layout)
+    datas, masks, str_lens = _cols_from_planes(planes, vmask, layout)
+    str_parts = []
+    for s, w, lens in zip(slot_starts, str_widths, str_lens):
+        chars = rows2d[:, s:s + w]
+        keep = torch.arange(w, device=rows2d.device) < lens[:, None]
+        str_parts.append((torch.where(keep, chars, 0), lens))
+    return datas, masks, str_parts
+
+
+def _from_rows_variable_padded(rows: RowsColumn, layout: RowLayout,
+                               dev) -> Table:
+    rows2d = _rows2d_on(rows, rows.row_size, dev)
+    if (len(rows.str_widths) != layout.num_variable_columns
+            or padded_variable_layout(layout, rows.str_widths)[2]
+            != rows.row_size):
+        raise ValueError(f"row size {rows.row_size} and string widths "
+                         f"{rows.str_widths} are not a padded layout of "
+                         f"{layout.num_variable_columns} string columns")
+    datas, masks, str_parts = padded_cols_from_rows(rows2d, layout,
+                                                    rows.str_widths)
+    parts = iter(str_parts)
+    cols = []
+    for i, dt in enumerate(layout.dtypes):
+        if dt.is_string:
+            chars2d, lens = next(parts)
+            cols.append(Column.padded_strings(chars2d, lens, masks[i]))
+        else:
+            cols.append(Column(dt, datas[i], masks[i]))
+    return Table(tuple(cols))
+
+
+def _ragged_positions(lens: np.ndarray):
+    """For per-row lengths, (row index, position in the row) of every
+    element of their concatenation (the JAX package's
+    ``table.ragged_positions``)."""
+    lens = np.asarray(lens, dtype=np.int64)
+    rows = np.repeat(np.arange(len(lens), dtype=np.int64), lens)
+    starts = np.cumsum(lens) - lens
+    intra = np.arange(int(lens.sum()), dtype=np.int64) - \
+        np.repeat(starts, lens)
+    return rows, intra
+
+
+def compact_rows_host(rows: RowsColumn, dtypes: Sequence[DType], *,
+                      device=None) -> RowsColumn:
+    """A dense-padded batch as the exact compact JCUDF wire bytes: each
+    row's fixed section, then its strings' chars back to back, the pairs
+    pointing at them, each row rounded up to 8 bytes.  Computed in numpy
+    on the host, where the ragged form may exist; the flat blob and its
+    int32 offsets go to ``device`` (default: the CUDA card).  A batch that
+    is not padded comes back as it is."""
+    dev = resolve_device(device)
+    if not rows.is_padded:
+        return rows
+    layout = compute_row_layout(dtypes)
+    n, rs = rows.num_rows, rows.row_size
+    blob = rows.rows2d(rs).cpu().numpy().reshape(n, rs)
+    slot_starts, _, _ = padded_variable_layout(layout, rows.str_widths)
+    fe = layout.fixed_end
+    nvar = len(slot_starts)
+    lens = np.zeros((n, nvar), np.int64)
+    for si, s in enumerate(layout.variable_starts):
+        lens[:, si] = blob[:, s + 4:s + 8].copy().view(np.uint32)[:, 0]
+    within = np.cumsum(lens, axis=1) - lens          # exclusive, per row
+    row_sizes = (fe + lens.sum(axis=1) + 7) // 8 * 8
+    out_offs = np.zeros(n + 1, np.int64)
+    np.cumsum(row_sizes, out=out_offs[1:])
+    out = np.zeros(int(out_offs[-1]), np.uint8)
+    idx = out_offs[:-1, None] + np.arange(fe)[None, :]
+    out[idx.reshape(-1)] = blob[:, :fe].reshape(-1)
+    # the pairs' offsets, rewritten to the compact positions
+    pair_vals = (fe + within).astype(np.uint32)
+    for si, s in enumerate(layout.variable_starts):
+        pb = pair_vals[:, si:si + 1].copy().view(np.uint8)   # [n, 4] LE
+        out[(out_offs[:-1, None] + s + np.arange(4)[None, :]).reshape(-1)] \
+            = pb.reshape(-1)
+    for si, (s, w) in enumerate(zip(slot_starts, rows.str_widths)):
+        ln = lens[:, si]
+        if int(ln.max(initial=0)) > w:
+            raise ValueError(
+                f"string column {si} has rows longer than its padded "
+                f"width {w}; refusing to emit truncated wire bytes")
+        rows_r, intra = _ragged_positions(ln)
+        src = rows_r * rs + s + intra
+        dst = out_offs[rows_r] + fe + within[rows_r, si] + intra
+        out[dst] = blob.reshape(-1)[src]
+    return RowsColumn(torch.from_numpy(out).to(dev),
+                      torch.from_numpy(out_offs.astype(np.int32)).to(dev))
 
 
 # ---------------------------------------------------------------------------
@@ -220,15 +533,20 @@ def _oracle_gather_maps(layout: RowLayout) -> Tuple[np.ndarray, np.ndarray]:
     return src, vsrc
 
 
-def _validity_row_bytes(table: Table, layout: RowLayout) -> torch.Tensor:
-    """Validity bytes per row, ``[n, validity_bytes]``: byte ``c // 8``,
-    bit ``c % 8`` of column ``c``; 1 = valid."""
-    n = table.num_rows
-    out = torch.zeros((n, layout.validity_bytes), dtype=torch.uint8,
-                      device=table.device)
-    for c, col in enumerate(table.columns):
-        out[:, c // 8] |= col.valid_bools().to(torch.uint8) << (c % 8)
-    return out
+def _validity_row_bytes(table: Table, layout: RowLayout, start: int = 0,
+                        size: Optional[int] = None) -> torch.Tensor:
+    """Validity bytes of rows ``[start, start + size)``, ``[size,
+    validity_bytes]``: byte ``c // 8``, bit ``c % 8`` of column ``c``; 1 =
+    valid."""
+    if size is None:
+        size = table.num_rows - start
+    dev, vb = table.device, layout.validity_bytes
+    if not table.columns:
+        return torch.zeros((size, 0), dtype=torch.uint8, device=dev)
+    bits = torch.nn.functional.pad(valid_bits(table.columns, start, size),
+                                   (0, 0, 0, 8 * vb - len(table.columns)))
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)[:, None]
+    return (bits.view(vb, 8, size) << shifts).sum(1, dtype=torch.uint8).T
 
 
 def _oracle_to_rows(table: Table, layout: RowLayout) -> torch.Tensor:

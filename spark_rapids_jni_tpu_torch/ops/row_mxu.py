@@ -12,10 +12,13 @@ schema; they live in :mod:`.word_plan` (numpy, exactly as in the JAX
 package) and are re-exported here under their JAX names.
 
 The encode (backing to rows) and the decode (rows to backing) run as the
-hand-written CUDA kernels in :mod:`.kernels`.  Planes are int32 tensors
-holding the JAX package's uint32 bits, because torch implements few
-operations on ``uint32``; :mod:`spark_rapids_jni_tpu_torch.interop`
-converts at the numpy boundary.
+hand-written CUDA kernels in :mod:`.kernels`.  A table too large to pack
+whole beside itself is encoded in two stages, batch by batch
+(:func:`to_rows_fixed`): the pack kernel writes the batch's forward word
+planes, validity quads included, and a static byte map turns them into
+rows.  Planes are int32 tensors holding the JAX package's uint32 bits,
+because torch implements few operations on ``uint32``;
+:mod:`spark_rapids_jni_tpu_torch.interop` converts at the numpy boundary.
 """
 
 from __future__ import annotations
@@ -25,9 +28,7 @@ from typing import List
 
 import torch
 
-from spark_rapids_jni_tpu_torch.table import (
-    BITS_DTYPES, Column, Table, bits_view,
-)
+from spark_rapids_jni_tpu_torch.table import BITS_DTYPES, Column, Table
 from spark_rapids_jni_tpu_torch.ops import kernels
 from spark_rapids_jni_tpu_torch.ops.row_layout import (
     RowLayout, compute_row_layout,
@@ -107,29 +108,15 @@ class GroupedColumns:
 def table_to_grouped(table: Table, layout: RowLayout = None
                      ) -> GroupedColumns:
     """Pack a table into its plane-major backing: ``[Wd, n]`` data planes
-    and ``[ncols, ceil(n/8)]`` packed validity (255 for columns without a
-    mask).  Plain tensor copies, one per column: word-sized columns copy
-    into whole planes, narrower ones into their bytes of a plane."""
+    (``kernels.pack_data_words``: plain tensor copies, one per column) and
+    ``[ncols, ceil(n/8)]`` packed validity (255 for columns without a
+    mask)."""
     if layout is None:
         layout = compute_row_layout(table.dtypes)
-    plan = _forward_plan(layout)[0]
     n = table.num_rows
-    dev = table.device
-    planes = torch.zeros((_data_words(layout), n), dtype=torch.int32,
-                         device=dev)
-    plane_bytes = planes.view(torch.uint8).view(planes.shape[0], n, 4)
-    for i, col in enumerate(table.columns):
-        sz = layout.col_sizes[i]
-        w, b = plan.col_word[i], plan.col_byte[i]
-        data = bits_view(col.data)
-        if sz == 8:
-            planes[w:w + 2] = data.view(torch.int32).view(n, 2).T
-        elif sz == 4:
-            planes[w] = data
-        else:
-            plane_bytes[w, :, b:b + sz] = data.view(torch.uint8).view(n, sz)
+    planes = kernels.pack_data_words(table, layout, _data_words(layout), 0, n)
     nb = (n + 7) // 8
-    full = torch.full((nb,), 255, dtype=torch.uint8, device=dev)
+    full = torch.full((nb,), 255, dtype=torch.uint8, device=table.device)
     vmask = torch.stack([c.validity if c.validity is not None else full
                          for c in table.columns])
     return GroupedColumns(planes, vmask, layout)
@@ -171,6 +158,40 @@ def to_rows_fixed_grouped(gc: GroupedColumns, start: int = 0,
         size = n - start
     _check_batch(start, size, n)
     return kernels.grouped_encode(gc.planes, gc.vmask, gc.layout, start, size)
+
+
+def to_rows_fixed(table: Table, layout: RowLayout, start: int = 0,
+                  size: int = None) -> torch.Tensor:
+    """The two-stage encode of table rows ``[start, start + size)`` to
+    uint8 ``[size, row_size]`` JCUDF rows, holding no more than the batch
+    beside the table: K3 (``kernels.pack_planes``) packs the batch's
+    forward word planes, reading each column in place at ``start``, then
+    :func:`forward_planes_to_rows` maps them to rows."""
+    if size is None:
+        size = table.num_rows - start
+    return forward_planes_to_rows(
+        kernels.pack_planes(table, layout, start, size), layout)
+
+
+def forward_planes_to_rows(planes: torch.Tensor,
+                           layout: RowLayout) -> torch.Tensor:
+    """The second stage of :func:`to_rows_fixed`, the byte map of the
+    forward plan (the JAX package's permutation ``dot_general``): each
+    data byte of a row is a static gather from its planes' bytes, validity
+    byte ``j`` is ``sum(quad_byte(c) << (c % 8))`` over columns ``c`` in
+    ``8j .. 8j + 7``, and padding bytes are zero."""
+    size = planes.shape[1]
+    wd, nc = _data_words(layout), layout.num_columns
+    dev = planes.device
+    xb = planes.T.contiguous().view(torch.uint8)          # [size, 4 * W]
+    idx, has = kernels._index(kernels.encode_byte_map(layout), dev)
+    out = xb.index_select(1, idx).masked_fill_(~has, 0)
+    vo, vb = layout.validity_offset, layout.validity_bytes
+    quads = torch.nn.functional.pad(xb[:, 4 * wd:4 * wd + nc],
+                                    (0, 8 * vb - nc)).view(size, vb, 8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+    out[:, vo:vo + vb] = (quads << shifts).sum(2, dtype=torch.uint8)
+    return out
 
 
 # ---------------------------------------------------------------------------

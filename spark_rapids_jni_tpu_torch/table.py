@@ -10,7 +10,7 @@ dense-padded string columns):
   multiple of 4, zeros past each length) and int32 ``lens [n]``; its
   ``data`` is an empty placeholder, as in the JAX package.  Arrow-layout
   strings (offsets + flat chars) and width-capped columns with their host
-  tail wait for the strings slice of the port.
+  tail wait for a later slice of the port.
 - Validity is a ``uint8 [ceil(n/8)]`` LSB-first bitmask over rows: byte
   ``r // 8``, bit ``r % 8``; ``1`` means valid.  It is byte-identical to the
   JAX package's mask and to the bit order the JCUDF row format uses.
@@ -212,6 +212,22 @@ def unpack_bools(mask: torch.Tensor, n: int) -> torch.Tensor:
     shifts = torch.arange(8, dtype=torch.uint8, device=mask.device)
     bits = (mask.unsqueeze(-1) >> shifts) & 1
     return bits.reshape(*mask.shape[:-1], -1)[..., :n].to(torch.bool)
+
+
+def valid_bits(columns: Sequence["Column"], start: int,
+               size: int) -> torch.Tensor:
+    """uint8 ``[len(columns), size]``: each column's validity of rows
+    ``[start, start + size)`` as 0/1 (1 for a column without a mask),
+    unpacking only the mask bytes that hold those rows, for all columns
+    at once."""
+    dev = columns[0].device
+    b0, b1 = start >> 3, (start + size + 7) >> 3
+    full = torch.full((b1 - b0,), 255, dtype=torch.uint8, device=dev)
+    masks = torch.stack([full if c.validity is None else c.validity[b0:b1]
+                         for c in columns])
+    lo = start - 8 * b0
+    return unpack_bools(masks, 8 * (b1 - b0))[:, lo:lo + size] \
+        .to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------

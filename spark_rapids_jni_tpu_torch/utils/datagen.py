@@ -1,6 +1,6 @@
-"""Seeded random fixed-width tables and padded string columns, made on the
-device, and the edge data the hash kernels are checked on (special floats,
-random bloom bitsets).
+"""Seeded random tables (fixed-width and dense-padded string columns), made
+on the device, and the edge data the hash kernels are checked on (special
+floats, random bloom bitsets).
 
 The schema helper ``cycle_dtypes`` follows the reference benchmark datagen
 (``generate_input.hpp:445-452``).  Values are uniform random bytes, so float
@@ -15,7 +15,7 @@ numpy instead.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -33,10 +33,14 @@ def cycle_dtypes(dtypes: Sequence[DType], num_cols: int) -> list:
 
 def random_table(dtypes: Sequence[DType], num_rows: int, *, seed: int = 0,
                  null_probability: Optional[float] = 0.25,
+                 string_lens: Tuple[int, int] = (0, 32),
                  device=None) -> Table:
-    """A fixed-width table of ``num_rows`` random rows.  Each row of each
-    column is null with ``null_probability``; ``None`` gives columns
-    without a validity mask."""
+    """A table of ``num_rows`` random rows.  Each row of each column is
+    null with ``null_probability``; ``None`` gives columns without a
+    validity mask.  A ``STRING`` column is dense-padded
+    (:func:`strings_with_lengths`): lengths uniform in ``string_lens``
+    (the bounds included; the reference ``data_profile``'s default
+    0..32), width the upper bound rounded up to 4."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -47,12 +51,21 @@ def random_table(dtypes: Sequence[DType], num_rows: int, *, seed: int = 0,
         masks = pack_bools(valid)
     cols = []
     for i, dt in enumerate(dtypes):
+        mask = None if masks is None else masks[i]
+        if dt.is_string:
+            lo, hi = string_lens
+            lens = torch.randint(lo, hi + 1, (num_rows,), dtype=torch.int32,
+                                 generator=gen, device=dev)
+            c = strings_with_lengths(lens, hi, seed=seed + 1 + i,
+                                     null_probability=None)
+            cols.append(Column.padded_strings(c.chars2d, c.lens, mask))
+            continue
         raw = torch.randint(0, 256, (num_rows * dt.itemsize,),
                             dtype=torch.uint8, generator=gen, device=dev)
         if dt.kind == "bool8":
             raw &= 1
         data = raw.view(BITS_DTYPES[dt.itemsize]).view(dt.torch_dtype)
-        cols.append(Column(dt, data, None if masks is None else masks[i]))
+        cols.append(Column(dt, data, mask))
     return Table(tuple(cols))
 
 

@@ -11,8 +11,9 @@ import pytest
 import torch
 
 from spark_rapids_jni_tpu_torch import (
-    BOOL8, DATE32, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64, TIMESTAMP64,
-    UINT8, UINT16, UINT32, UINT64, Column, decimal32, decimal64,
+    BOOL8, DATE32, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64, STRING,
+    TIMESTAMP64, UINT8, UINT16, UINT32, UINT64, Column, Table, decimal32,
+    decimal64,
 )
 from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
 from spark_rapids_jni_tpu_torch.ops import kernels, row_mxu
@@ -38,6 +39,22 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+def test_pack_planes_plain_batches_on_cpu():
+    """K3's plain version at any start is the whole table's planes sliced,
+    and the two-stage encode gives K1's rows."""
+    layout = compute_row_layout(ALL_FIXED)
+    t = random_table(ALL_FIXED, 203, seed=5, null_probability=0.25,
+                     device="cpu")
+    full = kernels.pack_planes(t, layout, 0, 203)
+    for start, size in ((1, 200), (13, 8), (202, 1), (9, 0)):
+        assert torch.equal(kernels.pack_planes(t, layout, start, size),
+                           full[:, start:start + size])
+    gc = row_mxu.table_to_grouped(t, layout)
+    assert torch.equal(row_mxu.to_rows_fixed(t, layout),
+                       kernels.grouped_encode(gc.planes, gc.vmask, layout, 0,
+                                              203))
 
 
 def test_plain_versions_round_trip_on_cpu():
@@ -99,6 +116,9 @@ def test_launches_count_kernel_runs_only(cuda):
     hk.xxhash64_cols(t.columns, 42)
     words = random_bitset(4, 0.5, device=cuda)
     hk.bloom_might_contain(words, t.columns[0], 3)
+    planes = kernels.pack_planes(t, layout, 3, 97)
+    kernels.pack_planes(t, layout, 100, 0)
+    assert torch.equal(planes, kernels.pack_planes_plain(t, layout, 3, 97))
     hk.murmur3_cols_plain(t.columns, 42)
     hk.xxhash64_cols_plain(t.columns, 42)
     hk.bloom_might_contain_plain(words, t.columns[0], 3)
@@ -176,3 +196,55 @@ def test_decode_kernel_rejects_unaligned_rows(cuda):
         kernels.decode_planes(buf[2:].view(8, 12), layout)
     with pytest.raises(ValueError, match="4-byte aligned"):
         kernels.decode_planes(buf[:80].view(8, 10), layout)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schema", sorted(SCHEMAS))
+@pytest.mark.parametrize("n", [1, 33, 257, 2125])
+def test_pack_kernel_matches_plain_version(cuda, schema, n):
+    """K3 against its plain version at odd starts, under every null
+    pattern, and the two-stage encode against K1."""
+    dtypes = SCHEMAS[schema]
+    layout = compute_row_layout(dtypes)
+    for nulls in (None, 0.0, 1.0, 0.25):
+        t = random_table(dtypes, n, seed=n, null_probability=nulls,
+                         device=cuda)
+        for start in sorted({0, min(3, n - 1), n // 3, n - 1}):
+            for size in {n - start, (n - start) // 2}:
+                k = kernels.pack_planes(t, layout, start, size)
+                p = kernels.pack_planes_plain(t, layout, start, size)
+                assert torch.equal(k, p), (nulls, start, size)
+        gc = row_mxu.table_to_grouped(t, layout)
+        assert torch.equal(
+            row_mxu.to_rows_fixed(t, layout),
+            kernels.grouped_encode(gc.planes, gc.vmask, layout, 0, n)), nulls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 31, 6 * 1024 + 557])
+def test_decode_kernel_on_padded_string_rows(cuda, n):
+    """K2 over padded string rows (the stride is the padded row size, wider
+    than the layout's) against its plain version; the padded round trip on
+    the card gives back the table."""
+    dtypes = [INT64, STRING, INT16, STRING, INT8, STRING, BOOL8]
+    layout = compute_row_layout(dtypes)
+    for nulls in (None, 0.0, 1.0, 0.25):
+        fixed = random_table([d for d in dtypes if not d.is_string], n,
+                             seed=n, null_probability=nulls, device=cuda)
+        cols, f = [], iter(fixed.columns)
+        for d, W in zip(dtypes, (None, 0, None, 4, None, 32, None)):
+            cols.append(next(f) if W is None else strings_with_lengths(
+                (torch.arange(n, device=cuda) % (W + 1)).to(torch.int32), W,
+                seed=W, null_probability=nulls))
+        t = Table(tuple(cols))
+        [rows] = prc.convert_to_rows(t, device=cuda)
+        assert rows.str_widths == (0, 4, 32)
+        r2d = rows.rows2d(rows.row_size)
+        assert r2d.shape[1] > layout.fixed_row_size
+        pk, vk = kernels.decode_planes(r2d, layout)
+        pp, vp = kernels.decode_planes_plain(r2d, layout)
+        assert torch.equal(pk, pp) and torch.equal(vk, vp), nulls
+        kernels.reset_launches()
+        back = prc.convert_from_rows(rows, dtypes, device=cuda)
+        assert kernels.launches["decode_planes"] == 1
+        assert_tables_equivalent(t, back, check_nulls=False)

@@ -139,20 +139,67 @@ def test_oracle_matches_jax_oracle(rng):
         want[1], jax_table.dtypes))
 
 
-def test_strings_are_the_next_slice(rng):
+def test_compact_and_arrow_strings_wait_for_a_later_slice(rng):
+    """A compact (not padded) string blob and an Arrow-layout string column
+    raise NotImplementedError; the grouped forms and the gather oracle
+    refuse string tables, as the JAX package's do."""
     table = port_table(rng, ["int32"], 4)
     dtypes = [dtype_from_name("int32"), dtype_from_name("string")]
     rows = prc.convert_to_rows(table, device=CPU)[0]
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         prc.convert_from_rows(rows, dtypes, device=CPU)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(ValueError, match="grouped forms"):
         prc.convert_from_rows_grouped(rows, dtypes, device=CPU)
     with pytest.raises(ValueError, match="does not support strings"):
         prc.convert_from_rows_fixed_width_optimized(rows, dtypes, device=CPU)
-    string_col = Column(dtypes[1], torch.zeros(4, dtype=torch.uint8))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        prc.convert_to_rows(Table(table.columns + (string_col,)),
-                            device=CPU)
+    arrow = Column(dtypes[1], torch.zeros(4, dtype=torch.uint8))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        prc.convert_to_rows(Table(table.columns + (arrow,)), device=CPU)
+    padded = Column.strings_padded(["a", None, "bc", ""], device=CPU)
+    with pytest.raises(ValueError, match="does not support strings"):
+        prc.convert_to_rows_fixed_width_optimized(
+            Table(table.columns + (padded,)), device=CPU)
+
+
+def test_capped_route_matches_jax(rng, monkeypatch):
+    """Above the resident-pack cap (lowered here) the encode takes the
+    two-stage route: one K3 pack a batch, each reading the table in place
+    at its start, in the JAX package's 32-row-aligned batches; the bytes
+    equal JAX ``convert_to_rows`` with the same size_limit and the port's
+    grouped route."""
+    names = ["int64", "int32", "int16", "int8", "bool8", "float64"]
+    n = 3 * 1024 + 77
+    jax_table, table = both_tables(rng, names, n)
+    rs = compute_row_layout(table.dtypes).fixed_row_size
+    limit = 2000 * rs
+    grouped = prc.convert_to_rows(table, size_limit=limit, device=CPU)
+    assert [b.num_rows for b in grouped] == [1024] * 3 + [77]
+    packs = []
+    real_pack = kernels.pack_planes
+
+    def pack(t, layout, start, size):
+        assert t.columns[0].data.data_ptr() == \
+            table.columns[0].data.data_ptr()
+        packs.append((start, size))
+        return real_pack(t, layout, start, size)
+
+    monkeypatch.setattr(kernels, "pack_planes", pack)
+    monkeypatch.setattr(prc, "_FUSED_PREP_CAP", 1024)
+    got = prc.convert_to_rows(table, size_limit=limit, device=CPU)
+    assert packs == [(0, 1600), (1600, 1549)]
+    # bucket=None: the JAX package's shape buckets, which the port leaves
+    # out, would move the batch boundaries of a padded twin
+    assert_same_batches(got, jrc.convert_to_rows(jax_table, size_limit=limit,
+                                                 bucket=None))
+    assert torch.equal(torch.cat([b.data for b in got]),
+                       torch.cat([b.data for b in grouped]))
+    # at the cap the table keeps the grouped route
+    packs.clear()
+    prep = sum(c.data.numel() * c.data.element_size()
+               for c in table.columns) + len(names) * n // 8
+    monkeypatch.setattr(prc, "_FUSED_PREP_CAP", prep)
+    again = prc.convert_to_rows(table, size_limit=limit, device=CPU)
+    assert packs == [] and len(again) == 4
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(rng, monkeypatch):

@@ -1,14 +1,16 @@
 """PyTorch port, word plans, the plane-major backing and the two kernels'
 plain versions, held against the JAX package's ``ops/row_mxu.py``.
 
-The K1 and K2 Pallas kernels run once each in interpret mode, as
-``tests/test_row_mxu.py`` runs them on the CPU; every other comparison is
-against the JAX package's XLA versions.  All comparisons are exact."""
+The K1 and K2 Pallas kernels run once each in interpret mode, and K3 at the
+shapes of ``tests/test_row_mxu.py``'s pack test, as that file runs them on
+the CPU; every other comparison is against the JAX package's XLA versions.
+All comparisons are exact."""
 
 import numpy as np
 import pytest
 import torch
 
+from spark_rapids_jni_tpu import table as jt
 from spark_rapids_jni_tpu.ops import row_layout as jrl
 from spark_rapids_jni_tpu.ops import row_mxu as jmx
 from spark_rapids_jni_tpu_torch import interop
@@ -16,7 +18,7 @@ from spark_rapids_jni_tpu_torch.ops import kernels
 from spark_rapids_jni_tpu_torch.ops import row_layout as prl
 from spark_rapids_jni_tpu_torch.ops import row_mxu as pmx
 from spark_rapids_jni_tpu_torch.table import (
-    Table, assert_tables_equivalent, dtype_from_name,
+    Column, Table, assert_tables_equivalent, dtype_from_name,
 )
 from tests._torch_port import (
     ALL_FIXED_NAMES, WIDE_NAMES, assert_same_columns, both_tables, jax_dtype,
@@ -207,3 +209,85 @@ def test_kernel_wrappers_reject_bad_inputs(rng):
         kernels.decode_planes(rows[:, :4].contiguous(), p)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.decode_planes(rows[::2], p)
+
+
+# tests/test_row_mxu.py's pack test shapes: (schema, rows)
+PACK_SHAPES = [("all_fixed", 1000), ("wide212", 2048 + 77), ("one_int8", 33),
+               ("int64_pair", 50), ("odd_int16", 257)]
+
+
+@pytest.mark.parametrize("schema,n", PACK_SHAPES)
+def test_pack_planes_plain_matches_pallas_k3(rng, schema, n):
+    """K3's plain version against the Pallas ``_pack_kernel`` in interpret
+    mode: every forward plane, the validity quads' pad bytes included; the
+    wrapper takes the plain version for CPU tensors and counts nothing."""
+    names = SCHEMAS[schema]
+    jax_table, table = both_tables(rng, names, n)
+    p, j = _layouts(names)
+    want = np.asarray(jmx._pack_planes_pallas(
+        jax_table, j, jmx._forward_plan(j)[0], interpret=True))
+    got = kernels.pack_planes_plain(table, p, 0, n)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    before = dict(kernels.launches)
+    assert torch.equal(kernels.pack_planes(table, p, 0, n), got)
+    assert kernels.launches == before
+    # the data planes are the backing's
+    wd = pmx._data_words(p)
+    assert torch.equal(got[:wd], pmx.table_to_grouped(table, p).planes)
+
+
+def test_pack_planes_plain_odd_start_matches_pallas_k3(rng):
+    """A batch at an odd start reads each column, its validity bits
+    included, in place: equal to the Pallas kernel over the JAX package's
+    sliced table."""
+    n, start, size = 1000, 3, 611
+    jax_table, table = both_tables(rng, ALL_FIXED_NAMES, n)
+    p, j = _layouts(ALL_FIXED_NAMES)
+    sliced = jt.slice_table(jax_table, start, start + size)
+    want = np.asarray(jmx._pack_planes_pallas(
+        sliced, j, jmx._forward_plan(j)[0], interpret=True))
+    got = kernels.pack_planes_plain(table, p, start, size)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    full = kernels.pack_planes_plain(table, p, 0, n)
+    for s, k in ((7, 9), (999, 1), (500, 0)):
+        assert torch.equal(kernels.pack_planes_plain(table, p, s, k),
+                           full[:, s:s + k]), (s, k)
+
+
+@pytest.mark.parametrize("schema,n", [("all_fixed", 1000),
+                                      ("one_int8", 33)])
+def test_to_rows_fixed_matches_jax_two_stage(rng, schema, n):
+    """The two-stage encode equals the JAX package's (its pack in interpret
+    mode), whole and for one batch, and K1's rows."""
+    names = SCHEMAS[schema]
+    jax_table, table = both_tables(rng, names, n)
+    p, j = _layouts(names)
+    want = np.asarray(jmx.to_rows_fixed(jax_table, j,
+                                        pack="pallas_interpret"))
+    got = pmx.to_rows_fixed(table, p)
+    np.testing.assert_array_equal(got.numpy(), want.reshape(n, -1))
+    start, size = n // 3 + 1, n // 2
+    np.testing.assert_array_equal(
+        pmx.to_rows_fixed(table, p, start, size).numpy(),
+        want.reshape(n, -1)[start:start + size])
+    gc = pmx.table_to_grouped(table, p)
+    assert torch.equal(got, kernels.grouped_encode(gc.planes, gc.vmask, p, 0,
+                                                   n))
+
+
+def test_pack_planes_rejects_bad_inputs(rng):
+    table = port_table(rng, ["int32", "int8"], 40)
+    p, _ = _layouts(["int32", "int8"])
+    with pytest.raises(ValueError, match="outside"):
+        kernels.pack_planes(table, p, 30, 11)
+    with pytest.raises(ValueError, match="types are not the layout"):
+        kernels.pack_planes(table, _layouts(["int8", "int32"])[0], 0, 40)
+    strings = Table((table.columns[0], Column.strings_padded(
+        ["a"] * 40, device="cpu")))
+    s_layout = prl.compute_row_layout(strings.dtypes)
+    with pytest.raises(ValueError, match="1, 2, 4 and 8 bytes"):
+        kernels.pack_planes(strings, s_layout, 0, 40)
+    short = Table((table.columns[0], Column(
+        table.columns[1].dtype, table.columns[1].data[:39])))
+    with pytest.raises(ValueError, match="rows on"):
+        kernels.pack_planes(short, p, 0, 39)
