@@ -24,13 +24,20 @@ launch count set to 0 just before the path and read just after:
   (two batches of 1,000,000 rows);
 - the two-stage encode: ``convert_to_rows`` of 6M rows of the 212-column
   schema, whose resident pack passes the 4 GiB cap, in six batches of one
-  K3 launch each, every batch equal to K1's rows for the same rows.
+  K3 launch each, every batch equal to K1's rows for the same rows;
+- ``get_json_object`` over 1M event-log documents of 100 to 1,000 bytes
+  (a 1024-byte window; about 1% each of escaped string values, container
+  values, malformed documents and nulls) at ``$.a``, ``$.user.id`` and
+  ``$.items[2].sku``, one K9 launch a call, a 100,000-row sample and every
+  punted row against Python's ``json``; and over 4M compact documents
+  ``{"a":N,"b":"x"}`` at ``$.a``.
 
 Every kernel is held against its plain PyTorch version on the card, bit for
 bit, at every one of those shapes; then against 64-bit offsets (a string
 column of 24M rows of 96 bytes, a filter of 2^31 + 64 bits) and at edge
 shapes, types and null patterns (K3 at odd starts, the padded decode at
-string widths 0, 4 and 32).  Row conversion round trips must give back
+string widths 0, 4 and 32, hash chains of 801 and 1600 columns, K9 over
+600,000 rows of 4096 bytes).  Row conversion round trips must give back
 their input bit for bit, string lengths and chars included; partition ids
 must equal those of the original columns; the bloom probe must equal the
 host probe, keep every build key and give False for nulls.  Each kernel is timed, its bound being the larger of
@@ -48,6 +55,7 @@ row phase).
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -101,6 +109,28 @@ XX_STRIPE, XX_WORD = 22, 13   # one 8-byte stripe; the 4-byte block
 XX_BYTE, XX_FMIX = 11, 15     # one tail byte; the avalanche
 BLOOM_HASHES = 33             # two hashLong of a row
 BLOOM_PROBE = 20              # one probe: index, remainder, address, bit
+# K9's bound counts the least work the function needs for a char, not the
+# step the kernel runs: a char inside a string (most of a document: the
+# filler note) needs only a test for the closing quote and one for a
+# backslash, a char after the value is found only what keeps `deep` up to
+# date, and one SIMD byte compare (__vcmpeq4) tests four chars at once.
+# Two instructions for four chars stay under every char's need, so the
+# bytes side bounds K9.
+GJO_LEAST_OPS_4_CHARS = 2
+# A diagnostic, not the bound: the instructions of the kernel's own step on
+# the common path (no key byte read, no descent, no capture end), 869 in the
+# main loop of the built kernel's SASS for its four chars, branches, loads
+# and moves left out.  The kernel runs the whole step for every char.
+GJO_STEP = 217
+
+# get_json_object: 1M event-log documents in a 1024-byte window, the three
+# paths users ask of them, the rows held against Python's json, Spark's
+# compact documents (bench.py:725-731) at 4M rows, and a window whose rows
+# pass 2^31 bytes
+N_GJO, W_GJO = 1_000_000, 1024
+GJO_PATHS = ("$.a", "$.user.id", "$.items[2].sku")
+N_GJO_SAMPLE = 100_000
+N_GJO_WIDE, W_GJO_WIDE = 600_000, 4096
 
 KERNELS = (  # name, the TPU kernel it replaces
     ("grouped_encode", "spark_rapids_jni_tpu/ops/row_mxu.py:513"),
@@ -109,6 +139,7 @@ KERNELS = (  # name, the TPU kernel it replaces
     ("murmur3_cols", "spark_rapids_jni_tpu/ops/pallas_kernels.py:535"),
     ("xxhash64_cols", "spark_rapids_jni_tpu/ops/pallas_kernels.py:671"),
     ("bloom_might_contain", "spark_rapids_jni_tpu/ops/pallas_kernels.py:830"),
+    ("gjo_scan", "spark_rapids_jni_tpu/ops/pallas_kernels.py:742"),
 )
 
 
@@ -582,7 +613,31 @@ def phase_hash_edges(errs):
                     check(not bool(got[~col.valid_bools()].any()),
                           "a null row probed True")
                     cases += 1
-    emit(phase="hash_edges", cases=cases)
+    # chains past MAX_HASH_COLS columns: ceil(ncols / 800) launches, each
+    # seeded per row by the previous one's hashes; a string column in the
+    # first and in the last launch
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    from spark_rapids_jni_tpu_torch.utils import cycle_dtypes
+    n = 6 * 1024 + 557
+    chains = {}
+    for ncols in (801, 1600):
+        t = random_table(cycle_dtypes(fixed, ncols - 2), n, seed=ncols,
+                         null_probability=0.25)
+        strings = [strings_with_lengths(
+            (torch.arange(n, device=CARD) % (W + 1)).to(torch.int32), W,
+            seed=W, null_probability=0.25) for W in (12, 68)]
+        cols = [strings[0], *t.columns, strings[1]]
+        for name in ("murmur3_cols", "xxhash64_cols"):
+            kernels.reset_launches()
+            got = getattr(hk, name)(cols, 42)
+            torch.cuda.synchronize()
+            chains[f"{name}_{ncols}"] = kernels.launches[name]
+            check(kernels.launches[name] == -(-ncols // hk.MAX_HASH_COLS),
+                  f"{name} over {ncols} columns: {kernels.launches}")
+            _hold_hash(name, got, cols, 42, errs, f"{ncols}-column chain")
+            cases += 1
+    emit(phase="hash_edges", cases=cases, chain_launches=chains,
+         equal_plain=True)
 
 
 # ---------------------------------------------------------------------------
@@ -926,6 +981,268 @@ def phase_pack_edges(errs):
     emit(phase="pack_edges", cases=cases)
 
 
+# ---------------------------------------------------------------------------
+# get_json_object
+# ---------------------------------------------------------------------------
+
+def _json_oracle(doc, segs):
+    """Spark's answer at ``segs`` from Python's ``json``, for documents
+    without repeated keys and with integer numbers only: null for a null
+    row, a malformed document or a missing path; a string's content; any
+    other value in compact JSON."""
+    if doc is None:
+        return None
+    try:
+        obj = json.loads(doc)
+    except ValueError:
+        return None
+    for seg in segs:
+        if isinstance(seg, int):
+            if not isinstance(obj, list) or seg >= len(obj):
+                return None
+        elif not isinstance(obj, dict) or seg not in obj:
+            return None
+        obj = obj[seg]
+    if isinstance(obj, str):
+        return obj
+    return json.dumps(obj, separators=(",", ":"), ensure_ascii=False)
+
+
+def _oracle_segs(path):
+    """``$.a[2].b`` -> ["a", 2, "b"], independently of the port's parser."""
+    return [int(p[1:-1]) if p.startswith("[") else p
+            for p in re.findall(r"\[\d+\]|[^.\[\]$]+", path)]
+
+
+def _hold_sample(out, docs, rows, path, what):
+    """``out``'s values at ``rows`` (numpy) against the Python oracle."""
+    idx = torch.from_numpy(rows).to(CARD)
+    chars = out.chars2d[idx].cpu().numpy()
+    lens = out.lens[idx].cpu().numpy()
+    valid = out.valid_bools()[idx].cpu().numpy()
+    segs = _oracle_segs(path)
+    for j, r in enumerate(rows.tolist()):
+        got = bytes(chars[j, :lens[j]]).decode() if valid[j] else None
+        want = _json_oracle(docs[r], segs)
+        check(got == want, f"{what} {path} row {r}: {got!r} != {want!r}")
+
+
+def _gjo_segs(path):
+    from spark_rapids_jni_tpu_torch.ops import get_json as gj
+    segs = tuple(gj._parse_path(path))
+    return segs, max((len(p) for p in segs if isinstance(p, bytes)),
+                     default=1)
+
+
+def _hold_scan(ch, segs, mkl, errs, what):
+    """K9 against its plain version on ``ch``; returns K9's fields."""
+    from spark_rapids_jni_tpu_torch.ops import get_json as gj
+    got = gj.gjo_scan(ch, segs, mkl)
+    plain = gj.gjo_scan_plain(ch, segs, mkl)
+    errs["gjo_scan"] = max(errs["gjo_scan"], max_abs_err(got, plain))
+    check(torch.equal(got, plain), f"gjo_scan kernel != plain version: "
+                                   f"{what}")
+    return got
+
+
+def _gjo_bound(ch) -> dict:
+    """K9's least time: each char read once and six words a row written,
+    against GJO_LEAST_OPS_4_CHARS instructions for four chars of the
+    window; beside it, as a diagnostic, the time of the kernel's own
+    GJO_STEP instructions a char at the card's issue rate."""
+    n, W = ch.shape
+    step = n * W * GJO_STEP
+    return {**_bound(n * W + 24 * n, -(-n * W // 4) * GJO_LEAST_OPS_4_CHARS),
+            "step_instructions": step,
+            "step_ms": step / PEAK_INSTR_PER_S * 1e3}
+
+
+def _gjo_call_split(col, path, runs=5) -> dict:
+    """The parts of ``get_json_object(col, path)``, timed inside one pass:
+    each pass runs the call's own steps in its order, the scan (K9), the
+    torch tail with the one host read (``_gjo_finish``, ``any``), and the
+    host fixup of the flagged rows, with a host-clock stamp at a
+    synchronize after each, so that the parts of a pass add up to the
+    pass.  Medians over ``runs`` passes, the total's range, and beside them
+    the median and range of ``runs`` whole calls."""
+    from spark_rapids_jni_tpu_torch.ops import get_json as gj
+    from spark_rapids_jni_tpu_torch.ops import get_json_object
+    segs, mkl = _gjo_segs(path)
+    ch, valid = col.chars2d, col.valid_bools()
+    parts, calls, punted = [], [], 0
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = gj.gjo_scan(ch, segs, mkl)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        chars, lens, strict, needs_host = gj._gjo_finish(ch, valid, st)
+        any_punt = bool(needs_host.any())
+        t2 = time.perf_counter()
+        if any_punt:
+            rows = torch.nonzero(needs_host)[:, 0]
+            punted = int(rows.numel())
+            gj._host_fixup(chars, lens, strict, col, segs, rows)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        parts.append([(t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3])
+        del st, chars, lens, strict, needs_host
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        get_json_object(col, path)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0) * 1e3)
+    totals = [sum(p) for p in parts]
+    scan, tail, fixup = (statistics.median(v) for v in zip(*parts))
+    return {"call_ms": statistics.median(calls),
+            "call_ms_range": [min(calls), max(calls)],
+            "parts_total_ms": statistics.median(totals),
+            "parts_total_ms_range": [min(totals), max(totals)],
+            "scan_ms": scan, "tail_ms": tail, "host_fixup_ms": fixup,
+            "runs": runs, "punted_rows": punted}
+
+
+def phase_get_json_1m(errs, timing):
+    """get_json_object over 1M event-log documents (W = 1024) at three
+    paths: one K9 launch a call, K9 against its plain version, a
+    100,000-row sample and every punted row against Python's json."""
+    from spark_rapids_jni_tpu_torch import Column
+    from spark_rapids_jni_tpu_torch.ops import get_json_object, kernels
+    from spark_rapids_jni_tpu_torch.ops import get_json as gj
+    from spark_rapids_jni_tpu_torch.utils import datagen, json_event_docs
+    t0 = time.perf_counter()
+    docs, kinds = json_event_docs(N_GJO, seed=21)
+    col = Column.strings_padded(docs, pad_to=W_GJO, device=CARD)
+    setup_s = time.perf_counter() - t0
+    check(tuple(col.chars2d.shape) == (N_GJO, W_GJO), "1M window")
+    rng = np.random.default_rng(22)
+    special = np.isin(kinds, (datagen.EVENT_ESCAPED, datagen.EVENT_CONTAINER,
+                              datagen.EVENT_MALFORMED, datagen.EVENT_NULL))
+    rows = np.union1d(rng.choice(N_GJO, N_GJO_SAMPLE, replace=False),
+                      np.nonzero(special)[0])
+    total, per_path = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for path in GJO_PATHS:
+        out, launches = _read_path(kernels,
+                                   lambda: get_json_object(col, path))
+        check(launches["gjo_scan"] == 1 and sum(launches.values()) == 1,
+              f"get_json {path} launches {launches}")
+        for name, v in launches.items():
+            total[name] = total.get(name, 0) + v
+        segs, mkl = _gjo_segs(path)
+        st = _hold_scan(col.chars2d, segs, mkl, errs, f"1M {path}")
+        _hold_sample(out, docs, rows, path, "1M")
+        found = int(out.valid_bools().sum())
+        del out
+        per_path[path] = {"valid_rows": found, "found_rows": int(st[2].sum()),
+                          "deep_rows": int(st[5].sum()),
+                          **_gjo_call_split(col, path)}
+    peak = torch.cuda.max_memory_allocated()
+    segs, mkl = _gjo_segs(GJO_PATHS[0])
+    timing["gjo_scan"] = {
+        "rows": N_GJO, "width": W_GJO, "path": GJO_PATHS[0],
+        "ms": median_ms(lambda: gj.gjo_scan(col.chars2d, segs, mkl),
+                        flush=True),
+        "plain_ms": median_ms(lambda: gj.gjo_scan_plain(col.chars2d, segs,
+                                                        mkl),
+                              runs=1, warmup=0),
+        **_gjo_bound(col.chars2d)}
+    emit(phase="profile_get_json_1m", path=GJO_PATHS[0],
+         call=profile_breakdown(lambda: get_json_object(col, GJO_PATHS[0])))
+    emit(phase="get_json_1m", rows=N_GJO, width=W_GJO,
+         doc_bytes=int(col.lens.to(torch.int64).sum()),
+         kinds=np.bincount(kinds, minlength=5).tolist(),
+         setup_seconds=setup_s, sampled_rows=len(rows), launches=total,
+         equal_plain=True, equal_oracle=True, paths=per_path,
+         peak_memory_bytes=peak)
+    return total
+
+
+def _compact_docs(n: int):
+    """bench.py:725-731's documents {"a":N,"b":"x"} for N = row % 100, as a
+    dense-padded column built on the host in bulk (W = 16)."""
+    from spark_rapids_jni_tpu_torch import Column
+    v = np.arange(n) % 100
+    two = v >= 10
+    chars = np.zeros((n, 16), np.uint8)
+    chars[:, :5] = np.frombuffer(b'{"a":', np.uint8)
+    chars[:, 5] = np.where(two, v // 10, v) + 48
+    chars[two, 6] = v[two] % 10 + 48
+    tail = np.frombuffer(b',"b":"x"}', np.uint8)
+    chars[~two, 6:15] = tail
+    chars[two, 7:16] = tail
+    lens = np.where(two, 16, 15).astype(np.int32)
+    return Column.padded_strings(torch.from_numpy(chars).to(CARD),
+                                 torch.from_numpy(lens).to(CARD)), v
+
+
+def phase_get_json_4m_compact(errs, timing):
+    """bench.py's compact get_json documents at 4M rows (it caps them at
+    200,000), path $.a: one K9 launch, K9 against its plain version, every
+    row's value checked on the card, a 100,000-row sample against Python's
+    json."""
+    from spark_rapids_jni_tpu_torch.ops import get_json_object, kernels
+    from spark_rapids_jni_tpu_torch.ops import get_json as gj
+    col, v = _compact_docs(N_4M)
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = _read_path(kernels, lambda: get_json_object(col, "$.a"))
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["gjo_scan"] == 1 and sum(launches.values()) == 1,
+          f"compact launches {launches}")
+    segs, mkl = _gjo_segs("$.a")
+    _hold_scan(col.chars2d, segs, mkl, errs, "4M compact")
+    want_lens = torch.from_numpy(np.where(v >= 10, 2, 1).astype(np.int32))
+    check(bool(out.valid_bools().all())
+          and torch.equal(out.lens.cpu(), want_lens), "compact lengths")
+    digits = out.chars2d[:, :2].cpu().numpy().astype(np.int64)
+    got = np.where(v >= 10, (digits[:, 0] - 48) * 10 + digits[:, 1] - 48,
+                   digits[:, 0] - 48)
+    check(np.array_equal(got, v) and not bool(out.chars2d[:, 2:].any()),
+          "compact values")
+    docs = [f'{{"a":{x},"b":"x"}}' for x in v[:N_GJO_SAMPLE].tolist()]
+    _hold_sample(out, docs, np.arange(N_GJO_SAMPLE), "$.a", "4M compact")
+    timing["gjo_scan_compact_4m"] = {
+        "rows": N_4M, "width": 16,
+        "ms": median_ms(lambda: gj.gjo_scan(col.chars2d, segs, mkl),
+                        flush=True),
+        "plain_ms": median_ms(lambda: gj.gjo_scan_plain(col.chars2d, segs,
+                                                        mkl), runs=3),
+        **_gjo_bound(col.chars2d), **_gjo_call_split(col, "$.a")}
+    emit(phase="get_json_4m_compact", rows=N_4M, width=16,
+         launches=launches, equal_plain=True, equal_oracle=True,
+         all_rows_checked=True, peak_memory_bytes=peak)
+    return launches
+
+
+def phase_gjo_offsets_64bit(errs):
+    """K9 over 600,000 rows of a 4096-byte window (2.46e9 bytes: row
+    offsets past 2^31) against its plain version: 20,000 event documents of
+    100 to 4096 bytes, repeated in a random order on the card."""
+    from spark_rapids_jni_tpu_torch import Column
+    from spark_rapids_jni_tpu_torch.utils import json_event_docs
+    torch.cuda.reset_peak_memory_stats()
+    docs, _ = json_event_docs(20_000, seed=23, lengths=(100, W_GJO_WIDE))
+    base = Column.strings_padded(docs, pad_to=W_GJO_WIDE, device=CARD)
+    gen = torch.Generator(device=CARD)
+    gen.manual_seed(24)
+    pick = torch.randint(0, 20_000, (N_GJO_WIDE,), generator=gen,
+                         device=CARD)
+    ch = base.chars2d[pick]
+    del base
+    check(ch.numel() > 1 << 31, "the window does not pass 2^31 bytes")
+    finds = {}
+    for path in GJO_PATHS:
+        segs, mkl = _gjo_segs(path)
+        st = _hold_scan(ch, segs, mkl, errs, f"600,000 x 4096 {path}")
+        past = (1 << 31) // W_GJO_WIDE
+        finds[path] = int(st[2, past:].sum())
+        check(finds[path] > 0, f"no row past 2^31 bytes found {path}")
+    emit(phase="gjo_offsets_64bit", rows=N_GJO_WIDE, width=W_GJO_WIDE,
+         chars_bytes=ch.numel(), found_rows_past_2_31=finds,
+         equal_plain=True,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1119,6 +1436,14 @@ def main():
     check(path_launches["pack_planes"] > 0,
           f"pack_planes never launched on its path: {path_launches}")
 
+    # -- get_json_object over event logs and compact documents
+    add_launches(phase_get_json_1m(errs, timing))
+    torch.cuda.empty_cache()
+    add_launches(phase_get_json_4m_compact(errs, timing))
+    torch.cuda.empty_cache()
+    check(path_launches["gjo_scan"] > 0,
+          f"gjo_scan never launched on its path: {path_launches}")
+
     # -- 64-bit offsets: random planes of N_WIDE rows, so that the index of
     # the last data plane's words (read by the encode) and of the last
     # decoded plane's words (written by the decode) pass 2^31 elements, and
@@ -1154,6 +1479,8 @@ def main():
     del rows_k, pk, vk, pp, vp, vmask
     torch.cuda.empty_cache()
     phase_hash_offsets_64bit(errs)
+    torch.cuda.empty_cache()
+    phase_gjo_offsets_64bit(errs)
     torch.cuda.empty_cache()
 
     # -- edges: every fixed type, odd sizes, all null patterns, odd starts

@@ -14,9 +14,13 @@ the reference; this package imports neither JAX nor that package.
   partitioning (``hash_partition_ids``).
 - ``ops.spark_bloom``: Spark's wire-compatible bloom filter and its probe
   on the device (``might_contain_device``).
+- ``ops.get_json``: Spark's ``get_json_object`` for object-key and
+  ``[i]`` subscript paths over dense-padded string columns (wildcards and
+  Arrow-layout columns wait for a later slice).
 - ``ops.kernels``: the build of the hand-written CUDA kernels (``csrc/``)
   and the row-conversion kernels' wrappers and plain versions;
-  ``ops.hash_kernels``: those of the hash and bloom kernels.
+  ``ops.hash_kernels``: those of the hash and bloom kernels; the JSON path
+  automaton's are in ``ops.get_json``.
 - ``utils.datagen``: seeded random tables (fixed-width and padded string
   columns), made on the device.
 - ``interop``: tables, backings and row batches to and from numpy, to hold

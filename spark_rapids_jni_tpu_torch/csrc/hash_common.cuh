@@ -45,7 +45,9 @@ struct SrjHashCol {
 // The descriptors of one hash launch, passed by value in the kernel's
 // parameter space (__grid_constant__), which holds 32,764 bytes on sm_70
 // and later with CUDA 12.1 or newer: room for 800 columns beside the other
-// parameters.  The wrapper rejects longer lists (hash_kernels.MAX_HASH_COLS).
+// parameters.  The wrapper chains a longer list through further launches,
+// each starting every row from the hash the previous launch wrote
+// (hash_kernels.MAX_HASH_COLS).
 constexpr int kMaxHashCols = 800;
 
 struct SrjHashCols {
@@ -73,18 +75,24 @@ int srj_launch_rows(void (*kernel)(Params...), int64_t n, int device,
 }
 
 // The C entry point of a column hash: copies the ncols host descriptors at
-// `cols` into the kernel's parameters and launches kernel(cols, n, seed,
-// out) over n rows.
-template <typename Kernel, typename Seed, typename Out>
-int srj_launch_hash(Kernel kernel, const SrjHashCol* cols, int ncols,
-                    int64_t n, Seed seed, Out* out, int device,
-                    void* stream) {
+// `cols` into the kernel's parameters and launches, over n rows,
+// first(cols, n, seed, out) where row_seeds is null (a chain's first
+// launch: every row starts at seed), else chain(cols, n, row_seeds, out)
+// (a later launch: row_seeds is the previous launch's output, often `out`
+// itself, and each row starts from its own value there).
+template <typename First, typename Chain, typename Seed, typename Out>
+int srj_launch_hash(First first, Chain chain, const SrjHashCol* cols,
+                    int ncols, int64_t n, Seed seed, const Out* row_seeds,
+                    Out* out, int device, void* stream) {
   if (ncols < 1 || ncols > kMaxHashCols)
     return static_cast<int>(cudaErrorInvalidValue);
   SrjHashCols params;
   for (int i = 0; i < ncols; ++i) params.col[i] = cols[i];
   params.ncols = ncols;
-  return srj_launch_rows(kernel, n, device, stream, params, n, seed, out);
+  if (row_seeds == nullptr)
+    return srj_launch_rows(first, n, device, stream, params, n, seed, out);
+  return srj_launch_rows(chain, n, device, stream, params, n, row_seeds,
+                         out);
 }
 
 __device__ __forceinline__ bool srj_row_valid(const SrjHashCol& c,

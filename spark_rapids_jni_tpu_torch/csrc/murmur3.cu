@@ -60,13 +60,9 @@ __device__ __forceinline__ uint32_t mm3_string(const SrjHashCol& c,
   return srj_mm3_fmix(h, static_cast<uint32_t>(len));
 }
 
-__global__ void __launch_bounds__(kHashThreads)
-murmur3_kernel(const __grid_constant__ SrjHashCols cols, int64_t n,
-               uint32_t seed, uint32_t* __restrict__ out) {
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kHashThreads + threadIdx.x;
-  if (row >= n) return;
-  uint32_t h = seed;
+// The chain over one launch's columns from h.
+__device__ __forceinline__ uint32_t mm3_row(const SrjHashCols& cols,
+                                            int64_t row, uint32_t h) {
   for (int i = 0; i < cols.ncols; ++i) {
     const SrjHashCol& c = cols.col[i];
     if (!srj_row_valid(c, row)) continue;
@@ -81,18 +77,44 @@ murmur3_kernel(const __grid_constant__ SrjHashCols cols, int64_t n,
       h = srj_mm3_fmix(srj_mm3_mix_h1(h, srj_word32(c, row)), 4);
     }
   }
-  out[row] = h;
+  return h;
+}
+
+// A chain's first launch: every row starts at seed.
+__global__ void __launch_bounds__(kHashThreads)
+murmur3_kernel(const __grid_constant__ SrjHashCols cols, int64_t n,
+               uint32_t seed, uint32_t* __restrict__ out) {
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kHashThreads + threadIdx.x;
+  if (row >= n) return;
+  out[row] = mm3_row(cols, row, seed);
+}
+
+// A later launch: each row starts from its word of row_seeds, which may be
+// `out` itself (each thread reads its own row's word before it writes it),
+// so neither pointer is __restrict__.
+__global__ void __launch_bounds__(kHashThreads)
+murmur3_chain_kernel(const __grid_constant__ SrjHashCols cols, int64_t n,
+                     const uint32_t* row_seeds, uint32_t* out) {
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kHashThreads + threadIdx.x;
+  if (row >= n) return;
+  out[row] = mm3_row(cols, row, row_seeds[row]);
 }
 
 }  // namespace
 
 // Hashes n rows over the ncols (<= kMaxHashCols) descriptors at `cols`, in
-// host memory, into out (int32 bits of uint32 [n]), every row starting at seed.
-// Launches on stream, of card `device`, and returns the launch's
-// cudaError_t.
+// host memory, into out (int32 bits of uint32 [n]), every row starting at
+// seed, or, where row_seeds is not null, at its own word of row_seeds (the
+// output of the chain's previous launch; it may be out).  Launches on
+// stream, of card `device`, and returns the launch's cudaError_t.
 extern "C" int srj_murmur3_cols(const SrjHashCol* cols, int ncols,
-                                int64_t n, uint32_t seed, void* out,
+                                int64_t n, uint32_t seed,
+                                const void* row_seeds, void* out,
                                 int device, void* stream) {
-  return srj_launch_hash(murmur3_kernel, cols, ncols, n, seed,
+  return srj_launch_hash(murmur3_kernel, murmur3_chain_kernel, cols, ncols,
+                         n, seed,
+                         static_cast<const uint32_t*>(row_seeds),
                          static_cast<uint32_t*>(out), device, stream);
 }

@@ -84,13 +84,9 @@ __device__ __forceinline__ uint64_t xx_string(const SrjHashCol& c,
   return srj_xx_fmix(h);
 }
 
-__global__ void __launch_bounds__(kHashThreads)
-xxhash64_kernel(const __grid_constant__ SrjHashCols cols, int64_t n,
-                uint64_t seed, uint64_t* __restrict__ out) {
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kHashThreads + threadIdx.x;
-  if (row >= n) return;
-  uint64_t h = seed;
+// The chain over one launch's columns from h.
+__device__ __forceinline__ uint64_t xx_row(const SrjHashCols& cols,
+                                           int64_t row, uint64_t h) {
   for (int i = 0; i < cols.ncols; ++i) {
     const SrjHashCol& c = cols.col[i];
     if (!srj_row_valid(c, row)) continue;
@@ -108,18 +104,43 @@ xxhash64_kernel(const __grid_constant__ SrjHashCols cols, int64_t n,
     hc = srj_rotl64(hc, 27) * kXxP1 + kXxP4;
     h = srj_xx_fmix(hc);
   }
-  out[row] = h;
+  return h;
+}
+
+// A chain's first launch: every row starts at seed.
+__global__ void __launch_bounds__(kHashThreads)
+xxhash64_kernel(const __grid_constant__ SrjHashCols cols, int64_t n,
+                uint64_t seed, uint64_t* __restrict__ out) {
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kHashThreads + threadIdx.x;
+  if (row >= n) return;
+  out[row] = xx_row(cols, row, seed);
+}
+
+// A later launch: each row starts from its value of row_seeds, which may
+// be `out` itself (see murmur3.cu).
+__global__ void __launch_bounds__(kHashThreads)
+xxhash64_chain_kernel(const __grid_constant__ SrjHashCols cols, int64_t n,
+                      const uint64_t* row_seeds, uint64_t* out) {
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kHashThreads + threadIdx.x;
+  if (row >= n) return;
+  out[row] = xx_row(cols, row, row_seeds[row]);
 }
 
 }  // namespace
 
 // Hashes n rows over the ncols (<= kMaxHashCols) descriptors at `cols`, in
-// host memory, into out (int64 bits of uint64 [n]), every row starting at seed.
-// Launches on stream, of card `device`, and returns the launch's
-// cudaError_t.
+// host memory, into out (int64 bits of uint64 [n]), every row starting at
+// seed, or, where row_seeds is not null, at its own value of row_seeds (the
+// output of the chain's previous launch; it may be out).  Launches on
+// stream, of card `device`, and returns the launch's cudaError_t.
 extern "C" int srj_xxhash64_cols(const SrjHashCol* cols, int ncols,
-                                 int64_t n, uint64_t seed, void* out,
+                                 int64_t n, uint64_t seed,
+                                 const void* row_seeds, void* out,
                                  int device, void* stream) {
-  return srj_launch_hash(xxhash64_kernel, cols, ncols, n, seed,
+  return srj_launch_hash(xxhash64_kernel, xxhash64_chain_kernel, cols, ncols,
+                         n, seed,
+                         static_cast<const uint64_t*>(row_seeds),
                          static_cast<uint64_t*>(out), device, stream);
 }

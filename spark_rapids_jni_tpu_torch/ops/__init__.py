@@ -1,6 +1,7 @@
 """Ops of the PyTorch port: row conversion (fixed-width and dense-padded
-string tables), Spark hashing and hash partitioning, and the Spark bloom
-filter."""
+string tables), Spark hashing and hash partitioning, the Spark bloom
+filter, and ``get_json_object`` (key and subscript paths over dense-padded
+string columns)."""
 
 from spark_rapids_jni_tpu_torch.ops.row_layout import (  # noqa: F401
     JCUDF_ROW_ALIGNMENT, MAX_BATCH_BYTES, MAX_ROW_SIZE, RowLayout,
@@ -26,4 +27,7 @@ from spark_rapids_jni_tpu_torch.ops.hashing import (  # noqa: F401
 )
 from spark_rapids_jni_tpu_torch.ops.spark_bloom import (  # noqa: F401
     SparkBloomFilter, might_contain_device,
+)
+from spark_rapids_jni_tpu_torch.ops.get_json import (  # noqa: F401
+    get_json_object,
 )

@@ -16,7 +16,10 @@ normalised words that an XLA pass builds first (``_hash_mats``).  The CUDA
 kernels read each column where it lies: the wrapper hands over one
 descriptor per column (data, type code, validity; chars, pitch and lengths
 for a padded string) in the kernel's parameters, at most
-:data:`MAX_HASH_COLS` of them, and the kernel normalises by type code.
+:data:`MAX_HASH_COLS` of them a launch, and the kernel normalises by type
+code.  A longer list chains through further launches, each starting every
+row from the hash the previous launch wrote: Spark's own chain, so the bits
+are those of one launch.
 
 A wrapper runs the plain version only for columns on the CPU; on CUDA it
 launches its kernel or raises.  The plain versions follow the JAX package's
@@ -49,7 +52,8 @@ _TYPE_CODES = {
     "float64": 7, "string": 8,
 }
 # the most columns one hash launch takes (csrc/hash_common.cuh's
-# kMaxHashCols: their descriptors fill the kernel's 32 KB parameter space)
+# kMaxHashCols: their descriptors fill the kernel's 32 KB parameter space);
+# a longer list takes ceil(ncols / MAX_HASH_COLS) chained launches
 MAX_HASH_COLS = 800
 # the kinds Spark's bloom filter casts to long (the JAX package's
 # spark_bloom._DEVICE_KINDS)
@@ -381,13 +385,16 @@ def _descriptors(cols: Sequence[Column]) -> ctypes.Array:
 
 def _launch_hash(name: str, cols: Sequence[Column], seed: int,
                  out: torch.Tensor):
-    _check(len(cols) <= MAX_HASH_COLS,
-           f"the hash kernels take at most {MAX_HASH_COLS} columns a call, "
-           f"got {len(cols)}")
+    """Launch kernel ``name`` over ``cols`` in chunks of
+    :data:`MAX_HASH_COLS` columns: the first from ``seed``, each later one
+    from the hashes in ``out``, which it overwrites."""
     dev = out.device
-    descs = _descriptors(cols)
-    kernels.launch(name, ctypes.addressof(descs), len(cols), out.shape[0],
-                   seed, out.data_ptr(), dev.index, kernels.stream_of(dev))
+    for i in range(0, len(cols), MAX_HASH_COLS):
+        chunk = cols[i:i + MAX_HASH_COLS]
+        descs = _descriptors(chunk)
+        kernels.launch(name, ctypes.addressof(descs), len(chunk),
+                       out.shape[0], seed, None if i == 0 else out.data_ptr(),
+                       out.data_ptr(), dev.index, kernels.stream_of(dev))
 
 
 def _kernel_device(cols: Sequence[Column]) -> torch.device:
@@ -399,7 +406,9 @@ def _kernel_device(cols: Sequence[Column]) -> torch.device:
 def murmur3_cols(cols: Sequence[Column], seed: int) -> torch.Tensor:
     """K6: Spark's murmur3_x86_32 chained over ``cols`` (fixed-width and
     dense-padded string columns, one device), int32 ``[n]``.  A null field
-    leaves the running hash unchanged; ``seed`` is taken modulo 2^32."""
+    leaves the running hash unchanged; ``seed`` is taken modulo 2^32.  On
+    the card it launches ``ceil(len(cols) / MAX_HASH_COLS)`` times (once up
+    to 800 columns), each launch counted."""
     cols = tuple(cols)
     n = _check_cols(cols)
     if cols[0].device.type == "cpu":
@@ -440,7 +449,8 @@ def xxhash64_cols(cols: Sequence[Column], seed: int) -> torch.Tensor:
     """K7: Spark's xxhash64 chained over ``cols``, int64 ``[n]``: Spark's
     long, whose bits are the JAX package's ``[n, 2]`` uint32 (lo, hi) pair
     read as one little-endian 64-bit word.  ``seed`` is taken modulo 2^32
-    and zero-extended, as in the JAX package."""
+    and zero-extended, as in the JAX package.  On the card it launches
+    ``ceil(len(cols) / MAX_HASH_COLS)`` times, each launch counted."""
     cols = tuple(cols)
     n = _check_cols(cols)
     if cols[0].device.type == "cpu":

@@ -13,7 +13,9 @@ row-conversion kernels' wrappers and plain PyTorch versions.
   encode, ``row_mxu.to_rows_fixed``).
 - The hash and bloom-probe kernels (``csrc/murmur3.cu``,
   ``csrc/xxhash64.cu``, ``csrc/bloom_probe.cu``) build here too; their
-  wrappers and plain versions are in :mod:`.hash_kernels`.
+  wrappers and plain versions are in :mod:`.hash_kernels`.  So does the
+  get_json path automaton (``csrc/gjo_scan.cu``), whose wrapper and plain
+  version are in :mod:`.get_json`.
 
 A wrapper runs the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; there is no fallback.  Each launch
@@ -47,7 +49,8 @@ from spark_rapids_jni_tpu_torch.ops.row_layout import RowLayout
 
 # launches of each kernel since the last reset_launches()
 launches = {"grouped_encode": 0, "decode_planes": 0, "pack_planes": 0,
-            "murmur3_cols": 0, "xxhash64_cols": 0, "bloom_might_contain": 0}
+            "murmur3_cols": 0, "xxhash64_cols": 0, "bloom_might_contain": 0,
+            "gjo_scan": 0}
 
 
 def reset_launches():
@@ -64,7 +67,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = {"grouped_encode": "row_encode.cu", "decode_planes": "row_decode.cu",
            "pack_planes": "pack_planes.cu", "murmur3_cols": "murmur3.cu",
            "xxhash64_cols": "xxhash64.cu",
-           "bloom_might_contain": "bloom_probe.cu"}
+           "bloom_might_contain": "bloom_probe.cu", "gjo_scan": "gjo_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -102,11 +105,13 @@ _ENTRY = {
         _VP]),
     "pack_planes": ("srj_pack_planes", [_VP, _I64, _I64, _VP, _I32, _VP]),
     "murmur3_cols": ("srj_murmur3_cols", [
-        _VP, _I32, _I64, ctypes.c_uint32, _VP, _I32, _VP]),
+        _VP, _I32, _I64, ctypes.c_uint32, _VP, _VP, _I32, _VP]),
     "xxhash64_cols": ("srj_xxhash64_cols", [
-        _VP, _I32, _I64, ctypes.c_uint64, _VP, _I32, _VP]),
+        _VP, _I32, _I64, ctypes.c_uint64, _VP, _VP, _I32, _VP]),
     "bloom_might_contain": ("srj_bloom_might_contain", [
         _VP, _I64, _I32, _VP, _I32, _VP, _I64, _VP, _I32, _VP]),
+    "gjo_scan": ("srj_gjo_scan", [
+        _VP, _I64, _I64, _I32, _VP, _I32, _VP, _I32, _VP, _I32, _VP]),
 }
 
 

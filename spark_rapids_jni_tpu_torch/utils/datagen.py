@@ -1,6 +1,7 @@
 """Seeded random tables (fixed-width and dense-padded string columns), made
-on the device, and the edge data the hash kernels are checked on (special
-floats, random bloom bitsets).
+on the device, the edge data the hash kernels are checked on (special
+floats, random bloom bitsets), and event-log JSON documents for
+``get_json_object`` (:func:`json_event_docs`, made on the host).
 
 The schema helper ``cycle_dtypes`` follows the reference benchmark datagen
 (``generate_input.hpp:445-452``).  Values are uniform random bytes, so float
@@ -15,8 +16,10 @@ numpy instead.
 
 from __future__ import annotations
 
+import re
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_jni_tpu_torch.table import (
@@ -140,3 +143,65 @@ def random_bitset(num_words: int, density: float, *, seed: int = 0,
     shifts = torch.arange(8, dtype=torch.uint8, device=dev)
     return (bits.to(torch.uint8) << shifts).sum(1).to(torch.uint8) \
         .view(torch.int64)
+
+
+# kinds of json_event_docs' documents
+EVENT_PLAIN, EVENT_ESCAPED, EVENT_CONTAINER, EVENT_MALFORMED, EVENT_NULL = \
+    range(5)
+_EVENTS = ("page_view", "click", "add_to_cart", "purchase", "search")
+_NAMES = ("ana", "bo", "chen", "dana", "émile", "farah", "gus", "hiro")
+
+
+def json_event_docs(num_rows: int, *, seed: int = 0, special: float = 0.01,
+                    lengths: Tuple[int, int] = (100, 1000)):
+    """``num_rows`` event-log JSON documents of a clickstream shape, and
+    their kinds (int8 numpy, ``EVENT_*``): an object with a number ``a``, a
+    ``user`` object (string ``id``, a name, a tag array), 0 to 5 ``items``
+    objects (``sku``, ``qty``, ``price_cents``) and a filler ``note`` that
+    takes each document to a length uniform in ``lengths`` where its fields
+    leave room.  Each of four special kinds takes a ``special`` share of the
+    rows: the values at ``$.a``, ``$.user.id`` and ``$.items[2].sku`` are
+    strings with escapes (``EVENT_ESCAPED``) or containers
+    (``EVENT_CONTAINER``), the keys are unquoted (``EVENT_MALFORMED``, as a
+    JavaScript literal), or the row is null (None, ``EVENT_NULL``).
+    Numbers are integers and no key repeats, so ``json.loads`` reads every
+    well-formed document as Spark does."""
+    rng = np.random.default_rng(seed)
+    u = rng.random(num_rows)
+    kinds = np.where(u < 4 * special, (u // special).astype(np.int8) + 1,
+                     EVENT_PLAIN).astype(np.int8)
+    target = rng.integers(lengths[0], lengths[1] + 1, num_rows)
+    nums = rng.integers(0, 1 << 31, (num_rows, 4))
+    nitems = rng.integers(0, 6, num_rows)
+    docs = []
+    for i in range(num_rows):
+        kind = kinds[i]
+        if kind == EVENT_NULL:
+            docs.append(None)
+            continue
+        x, y, z, w = (int(v) for v in nums[i])
+        k = int(nitems[i])
+        if kind == EVENT_ESCAPED:
+            a, uid = f'"line\\n{x % 997} \\"q\\""', f'"u\\t{y}"'
+            sku2, k = f'"S\\\\{z % 9973}"', max(k, 3)
+        elif kind == EVENT_CONTAINER:
+            a, uid = f'{{"x": [{x % 7}, {y % 5}], "y": "z"}}', f'[{y % 9}, 2]'
+            sku2, k = f'{{"k": {z % 11}}}', max(k, 3)
+        else:
+            a, uid, sku2 = str(x % 100_000), f'"u-{y}"', None
+        skus = [sku2 if j == 2 and sku2 else f'"SKU-{z + j}"'
+                for j in range(k)]
+        items = ", ".join(
+            f'{{"sku": {sku}, "qty": {1 + (w + j) % 9}, '
+            f'"price_cents": {(w >> 3) % 99_999}}}'
+            for j, sku in enumerate(skus))
+        doc = (f'{{"a": {a}, "event": "{_EVENTS[x % 5]}", "ts": {w}, '
+               f'"user": {{"id": {uid}, "name": "{_NAMES[y % 8]}", '
+               f'"tags": ["t{z % 13}", "t{w % 17}"]}}, "items": [{items}], '
+               f'"note": "')
+        fill = int(target[i]) - len(doc.encode()) - 3
+        doc += "n" * max(fill, 0) + '"}'
+        if kind == EVENT_MALFORMED:
+            doc = re.sub(r'"(\w+)":', r"\1:", doc)
+        docs.append(doc)
+    return docs, kinds

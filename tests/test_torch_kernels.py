@@ -15,14 +15,15 @@ from spark_rapids_jni_tpu_torch import (
     TIMESTAMP64, UINT8, UINT16, UINT32, UINT64, Column, Table, decimal32,
     decimal64,
 )
+from spark_rapids_jni_tpu_torch.ops import get_json as gj
 from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
 from spark_rapids_jni_tpu_torch.ops import kernels, row_mxu
 from spark_rapids_jni_tpu_torch.ops import row_conversion as prc
 from spark_rapids_jni_tpu_torch.ops.row_layout import compute_row_layout
 from spark_rapids_jni_tpu_torch.table import assert_tables_equivalent
 from spark_rapids_jni_tpu_torch.utils import (
-    cycle_dtypes, random_bitset, random_table, special_floats,
-    strings_with_lengths,
+    cycle_dtypes, json_event_docs, random_bitset, random_table,
+    special_floats, strings_with_lengths,
 )
 
 ALL_FIXED = [INT64, FLOAT64, UINT64, INT32, UINT32, FLOAT32, INT16, UINT16,
@@ -122,6 +123,10 @@ def test_launches_count_kernel_runs_only(cuda):
     hk.murmur3_cols_plain(t.columns, 42)
     hk.xxhash64_cols_plain(t.columns, 42)
     hk.bloom_might_contain_plain(words, t.columns[0], 3)
+    ch = _gjo_window([b'{"a": 1}'] * 5, 12, cuda)
+    assert torch.equal(gj.gjo_scan(ch, (b"a",), 1),
+                       gj.gjo_scan_plain(ch, (b"a",), 1))
+    assert gj.gjo_scan(ch[:0], (b"a",), 1).shape == (6, 0)
     want = dict.fromkeys(kernels.launches, 1)
     assert kernels.launches == want
     empty = kernels.decode_planes(rows[:0], layout)
@@ -157,17 +162,37 @@ def test_hash_kernels_match_plain_versions(cuda, n):
 @pytest.mark.gpu
 def test_hash_many_columns_one_launch(cuda):
     """A chain over every column of the 212-column schema and 300 more
-    takes one launch; past MAX_HASH_COLS columns the kernels refuse."""
+    takes one launch."""
     t = random_table(WIDE + cycle_dtypes(HASH_FIXED, 300), 1000, seed=3,
                      null_probability=0.25, device=cuda)
     kernels.reset_launches()
     for fn, plain in ((hk.murmur3_cols, hk.murmur3_cols_plain),
                       (hk.xxhash64_cols, hk.xxhash64_cols_plain)):
         assert torch.equal(fn(t.columns, 42), plain(t.columns, 42))
-        with pytest.raises(ValueError, match="at most"):
-            fn([t.columns[0]] * (hk.MAX_HASH_COLS + 1), 42)
     assert kernels.launches["murmur3_cols"] == 1
     assert kernels.launches["xxhash64_cols"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ncols", [801, 1600, 1601])
+def test_hash_chains_past_max_columns(cuda, ncols):
+    """Past MAX_HASH_COLS columns the kernels chain ceil(ncols / 800)
+    launches, each seeded per row by the previous one's hashes, and give
+    the plain version's bits: strings and nulls in every chunk."""
+    n = 517
+    strings = [strings_with_lengths(
+        (torch.arange(n, device=cuda) % (W + 1)).to(torch.int32), W, seed=W,
+        null_probability=0.25) for W in (4, 36)]
+    t = random_table(cycle_dtypes(HASH_FIXED, ncols - 2), n, seed=ncols,
+                     null_probability=0.25, device=cuda)
+    cols = list(t.columns[:700]) + strings + list(t.columns[700:])
+    assert len(cols) == ncols
+    for fn, plain in ((hk.murmur3_cols, hk.murmur3_cols_plain),
+                      (hk.xxhash64_cols, hk.xxhash64_cols_plain)):
+        kernels.reset_launches()
+        got = fn(cols, 42)
+        assert kernels.launches[fn.__name__] == -(-ncols // hk.MAX_HASH_COLS)
+        assert torch.equal(got, plain(cols, 42)), fn.__name__
 
 
 @pytest.mark.gpu
@@ -248,3 +273,86 @@ def test_decode_kernel_on_padded_string_rows(cuda, n):
         back = prc.convert_from_rows(rows, dtypes, device=cuda)
         assert kernels.launches["decode_planes"] == 1
         assert_tables_equivalent(t, back, check_nulls=False)
+
+
+# documents beside the event logs: nesting past the depth budget, stray
+# closes (the uint8 depth wraps), escaped keys, an 8-segment match and a
+# 254-byte key
+_GJO_EDGE_DOCS = [
+    b'{"a": 1, "z": ' + b"[" * 300 + b"]" * 300 + b"}",
+    b"]]" + b'{"a": 5}', b'{"\\u0061": 1, "a": "x\\"y"}', b"",
+    b'{"p": {"q": [0, {"r": {"s": [[1, {"t": {"u": 7}}]]}}]}}',
+    b'{"' + b"k" * 254 + b'": [1, 2]}',
+]
+_GJO_PATHS = ["$.a", "$.items[2].sku", "$.p.q[1].r.s[0][1].t",
+              "$." + "k" * 254]
+
+
+def _gjo_window(docs, W, device):
+    """uint8 [n, W] on ``device``: each document's bytes cut at W, zeros
+    past them."""
+    ch = torch.zeros((len(docs), W), dtype=torch.uint8)
+    for i, d in enumerate(docs):
+        b = d[:W]
+        if b:
+            ch[i, :len(b)] = torch.frombuffer(bytearray(b), dtype=torch.uint8)
+    return ch.to(device)
+
+
+def _gjo_docs(n, W, seed):
+    docs, _ = json_event_docs(n - len(_GJO_EDGE_DOCS), seed=seed,
+                              special=0.05, lengths=(min(100, W), W))
+    return [b"" if d is None else d.encode() for d in docs] + \
+        _GJO_EDGE_DOCS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [4, 36, 4096, 40_000])
+def test_gjo_scan_matches_plain_version(cuda, W):
+    """K9 against its plain version: rows not a multiple of the block, a
+    window past the JAX package's 32 KiB VMEM limit, paths of 1 to 8
+    segments, a 254-byte key, an unaligned pitch, zero rows."""
+    n = 131 if W > 4096 else 389
+    ch = _gjo_window(_gjo_docs(n, W, seed=W), W, cuda)
+    # the plain version steps through the window with torch ops: past 4096
+    # chars it runs on the CPU, where each op costs less
+    plain_ch = ch.cpu() if W > 4096 else ch
+    for path in _GJO_PATHS[:1] if W > 4096 else _GJO_PATHS:
+        segs = tuple(gj._parse_path(path))
+        mkl = max((len(s) for s in segs if isinstance(s, bytes)), default=1)
+        got = gj.gjo_scan(ch, segs, mkl)
+        want = gj.gjo_scan_plain(plain_ch, segs, mkl)
+        assert torch.equal(got.cpu(), want.cpu()), path
+    if W <= 36:
+        # rows 1 byte apart: the kernel reads them byte by byte
+        buf = torch.zeros(n * (W + 1), dtype=torch.uint8, device=cuda)
+        odd = buf.view(n, W + 1)[:, :W]
+        odd.copy_(ch)
+        assert torch.equal(gj.gjo_scan(odd, (b"a",), 1),
+                           gj.gjo_scan_plain(odd, (b"a",), 1))
+    kernels.reset_launches()
+    assert gj.gjo_scan(ch[:0], (b"a",), 1).shape == (6, 0)
+    assert kernels.launches["gjo_scan"] == 0
+
+
+@pytest.mark.gpu
+def test_get_json_object_on_the_card_matches_the_cpu(cuda):
+    """The whole function on the card (one K9 launch a call, the torch
+    tail, the host fixup of flagged rows) equals the CPU run, all-null
+    and zero-row columns included."""
+    from spark_rapids_jni_tpu_torch import Column
+    from spark_rapids_jni_tpu_torch.ops import get_json_object
+    docs, _ = json_event_docs(997, seed=11, special=0.05)
+    col = Column.strings_padded(docs, pad_to=1024, device="cpu")
+    nulls = Column.padded_strings(col.chars2d, col.lens,
+                                  torch.zeros_like(col.validity))
+    empty = Column.padded_strings(col.chars2d[:0], col.lens[:0])
+    for c in (col, nulls, empty):
+        for path in ("$.a", "$.user.id", "$.items[2].sku"):
+            want = get_json_object(c, path, device="cpu")
+            kernels.reset_launches()
+            got = get_json_object(c, path, device=cuda)
+            assert kernels.launches["gjo_scan"] == (1 if c.num_rows else 0)
+            assert torch.equal(got.chars2d.cpu(), want.chars2d), path
+            assert torch.equal(got.lens.cpu(), want.lens), path
+            assert torch.equal(got.validity.cpu(), want.validity), path
