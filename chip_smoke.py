@@ -30,19 +30,34 @@ launch count set to 0 just before the path and read just after:
   values, malformed documents and nulls) at ``$.a``, ``$.user.id`` and
   ``$.items[2].sku``, one K9 launch a call, a 100,000-row sample and every
   punted row against Python's ``json``; and over 4M compact documents
-  ``{"a":N,"b":"x"}`` at ``$.a``.
+  ``{"a":N,"b":"x"}`` at ``$.a``;
+- the word-plane engine, ``convert_to_rows``/``convert_from_rows`` with
+  ``impl="pallas"`` (``runtime`` and ``ops.plane_rows``): 1M rows of the
+  212-column schema in one batch, one pack (K4) and one unpack (K5)
+  launch, byte-equal to the default route's batch; 4M rows in four
+  batches of one K4 launch each;
+- the serving runtime (``serve``): a ``Scheduler()`` on the card and four
+  ``Client``s; one tick of 16 ``to_rows`` requests of 212 INT32 columns
+  and 33,000 to 65,536 rows (one K4 launch over 16 x 65,536 rows), their
+  round trip through ``from_rows`` (one K5 launch), a mixed tick of two
+  groups (two K4 launches) and a threaded run of four clients, every
+  answer against ``convert_to_rows`` of its own columns (K1), with the
+  tick's time split into stacking, staging, kernel, fetch and slicing.
 
 Every kernel is held against its plain PyTorch version on the card, bit for
 bit, at every one of those shapes; then against 64-bit offsets (a string
 column of 24M rows of 96 bytes, a filter of 2^31 + 64 bits) and at edge
 shapes, types and null patterns (K3 at odd starts, the padded decode at
 string widths 0, 4 and 32, hash chains of 801 and 1600 columns, K9 over
-600,000 rows of 4096 bytes).  Row conversion round trips must give back
-their input bit for bit, string lengths and chars included; partition ids
-must equal those of the original columns; the bloom probe must equal the
-host probe, keep every build key and give False for nulls.  Each kernel is timed, its bound being the larger of
-the bytes it must move over the card's memory rate and the arithmetic
-instructions its work needs over the card's issue rate.
+600,000 rows of 4096 bytes, K4 and K5 over 10.24M rows of 856 and 1008
+bytes).  Row conversion round trips must give back their input bit for bit,
+string lengths and chars included; partition ids must equal those of the
+original columns; the bloom probe must equal the host probe, keep every
+build key and give False for nulls.  Each kernel is timed, its bound being
+the larger of the bytes it must move over the card's memory rate and the
+arithmetic instructions its work needs over the card's issue rate; K4 and
+K5 also beside the one PyTorch call that computes the same function, a
+transposing copy (``library_ms``).
 
 Each phase prints one JSON line.  Near the end come the card's name and
 power limit (``nvidia-smi``) and one ``{"kernels": [...]}`` line; the last
@@ -59,6 +74,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -131,6 +147,15 @@ N_GJO, W_GJO = 1_000_000, 1024
 GJO_PATHS = ("$.a", "$.user.id", "$.items[2].sku")
 N_GJO_SAMPLE = 100_000
 N_GJO_WIDE, W_GJO_WIDE = 600_000, 4096
+# the serve rows op at the reference benchmark's 212 columns (bench.py:2-6,
+# 53), all-valid INT32 as the op takes them: 16 requests of 33,000 to
+# 65,536 rows fill one group of 16 x 65,536 rows (880-byte rows, about
+# 0.9 GB each way, near the 1 GiB batch of convert_to_rows); the mixed
+# tick's second group is at most 16,384 rows a request; four client
+# threads send 16 requests each of 2,000 to 8,000 rows
+SERVE_COLS, SERVE_REQUESTS = 212, 16
+SERVE_ROWS, SERVE_SMALL_ROWS = (33_000, 65_536), (9_000, 16_384)
+SERVE_THREAD_REQUESTS, SERVE_THREAD_ROWS = 16, (2_000, 8_000)
 
 KERNELS = (  # name, the TPU kernel it replaces
     ("grouped_encode", "spark_rapids_jni_tpu/ops/row_mxu.py:513"),
@@ -140,6 +165,8 @@ KERNELS = (  # name, the TPU kernel it replaces
     ("xxhash64_cols", "spark_rapids_jni_tpu/ops/pallas_kernels.py:671"),
     ("bloom_might_contain", "spark_rapids_jni_tpu/ops/pallas_kernels.py:830"),
     ("gjo_scan", "spark_rapids_jni_tpu/ops/pallas_kernels.py:742"),
+    ("planes_to_rows", "spark_rapids_jni_tpu/ops/pallas_kernels.py:365"),
+    ("rows_to_planes", "spark_rapids_jni_tpu/ops/pallas_kernels.py:210"),
 )
 
 
@@ -1243,6 +1270,308 @@ def phase_gjo_offsets_64bit(errs):
          peak_memory_bytes=torch.cuda.max_memory_allocated())
 
 
+# ---------------------------------------------------------------------------
+# The word-plane engine (impl="pallas", K4 and K5) and the serving runtime
+# ---------------------------------------------------------------------------
+
+def _transpose_bound(n: int, row_size: int) -> dict:
+    """K4's and K5's bound: each of the n rows' words read once and written
+    once."""
+    nbytes = 2 * n * row_size
+    return {"bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
+def _hold_transposes(planes, rows, errs, what):
+    """K4 over ``planes`` and K5 over ``rows`` against their plain
+    versions."""
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    # max_abs_err compares in slices: torch.equal would allocate a bool the
+    # size of the 10.24M-row phase's operands and raise its memory peak
+    n = planes.shape[1]
+    for name, k, p in (
+            ("planes_to_rows", lambda: kernels.planes_to_rows(planes, 0, n),
+             lambda: kernels.planes_to_rows_plain(planes, 0, n)),
+            ("rows_to_planes", lambda: kernels.rows_to_planes(rows),
+             lambda: kernels.rows_to_planes_plain(rows))):
+        err = max_abs_err(k(), p())
+        errs[name] = max(errs[name], err)
+        check(err == 0, f"{name} kernel != plain version: {what}")
+
+
+def phase_pallas_rows_1m(table, dtypes, blob, errs, timing):
+    """convert_to_rows / convert_from_rows with impl="pallas" at 1M rows of
+    the 212-column schema: one batch and one K4 launch, byte-equal to the
+    default route's batch ``blob`` (K1); one K5 launch to decode, values
+    and nulls equal to the input; K4 and K5 against their plain versions on
+    the same planes and rows; the kernels, their glue and the whole calls
+    timed."""
+    from spark_rapids_jni_tpu_torch.ops import (
+        compute_row_layout, convert_from_rows, convert_to_rows, kernels,
+        plane_rows,
+    )
+    from spark_rapids_jni_tpu_torch.table import assert_tables_equivalent
+    layout = compute_row_layout(dtypes)
+    rs = layout.fixed_row_size
+    batches, enc = _read_path(
+        kernels, lambda: convert_to_rows(table, impl="pallas"))
+    check(len(batches) == 1 and enc["planes_to_rows"] == 1
+          and sum(enc.values()) == 1, f"impl=pallas encode launches {enc}")
+    check(torch.equal(batches[0].data, blob),
+          "impl=pallas rows != the default route's (K1)")
+    decoded, dec = _read_path(kernels, lambda: convert_from_rows(
+        batches[0], dtypes, impl="pallas"))
+    check(dec["rows_to_planes"] == 1 and sum(dec.values()) == 1,
+          f"impl=pallas decode launches {dec}")
+    assert_tables_equivalent(table, decoded, check_nulls=False)
+    del decoded
+    planes = plane_rows._word_planes_from_table(table, layout)
+    _hold_transposes(planes, blob, errs, "1M rows of 212 columns")
+    check(torch.equal(kernels.rows_to_planes(blob), planes),
+          "K5 of the rows != the assembled planes")
+    library = {
+        "planes_to_rows": lambda: planes.t().contiguous(),
+        "rows_to_planes": lambda: blob.view(torch.int32).t().contiguous()}
+    for name, fn, plain_fn in (
+            ("planes_to_rows",
+             lambda: kernels.planes_to_rows(planes, 0, N_1M),
+             lambda: kernels.planes_to_rows_plain(planes, 0, N_1M)),
+            ("rows_to_planes", lambda: kernels.rows_to_planes(blob),
+             lambda: kernels.rows_to_planes_plain(blob))):
+        timing[name] = {
+            "rows": N_1M, "ms": median_ms(fn, flush=True),
+            "plain_ms": median_ms(plain_fn, flush=True),
+            "library_ms": median_ms(library[name], flush=True),
+            **_transpose_bound(N_1M, rs)}
+    k5 = kernels.rows_to_planes(blob)
+    glue = {
+        "plane_assembly_ms": median_ms(
+            lambda: plane_rows._word_planes_from_table(table, layout),
+            runs=10),
+        "column_extraction_ms": median_ms(
+            lambda: plane_rows._cols_from_word_planes(k5, layout), runs=10),
+        "convert_to_rows_ms": median_ms(
+            lambda: convert_to_rows(table, impl="pallas"), runs=10),
+        "convert_from_rows_ms": median_ms(
+            lambda: convert_from_rows(batches[0], dtypes, impl="pallas"),
+            runs=10)}
+    emit(phase="pallas_rows_1m", rows=N_1M, row_size=rs,
+         batches=len(batches), encode_launches=enc, decode_launches=dec,
+         equal_k1=True, roundtrip_bit_exact=True, equal_plain=True,
+         **{name: timing[name] for name in library}, **glue)
+    return {name: enc[name] + dec[name] for name in enc}
+
+
+def phase_pallas_rows_4m(table, dtypes, gc, errs):
+    """impl="pallas" at 4M rows: four equal batches, one K4 launch each,
+    each equal to K1's rows of the same rows; each decoded by one K5 launch
+    back to the table's rows."""
+    from spark_rapids_jni_tpu_torch.ops import (
+        compute_row_layout, convert_from_rows, convert_to_rows, kernels,
+    )
+    from spark_rapids_jni_tpu_torch.table import (
+        assert_tables_equivalent, slice_table,
+    )
+    layout = compute_row_layout(dtypes)
+    batches, enc = _read_path(
+        kernels, lambda: convert_to_rows(table, impl="pallas"))
+    sizes = [b.num_rows for b in batches]
+    check(sizes == [N_1M] * 4 and enc["planes_to_rows"] == 4
+          and sum(enc.values()) == 4,
+          f"impl=pallas 4M batches {sizes}, launches {enc}")
+    parts, dec = _read_path(kernels, lambda: [
+        convert_from_rows(b, dtypes, impl="pallas") for b in batches])
+    check(dec["rows_to_planes"] == 4 and sum(dec.values()) == 4,
+          f"impl=pallas 4M decode launches {dec}")
+    start = 0
+    for b, part in zip(batches, parts):
+        k1 = kernels.grouped_encode(gc.planes, gc.vmask, layout, start,
+                                    b.num_rows)
+        check(torch.equal(b.data, k1),
+              f"impl=pallas batch at {start} != K1's rows")
+        del k1
+        assert_tables_equivalent(slice_table(table, start,
+                                             start + b.num_rows),
+                                 part, check_nulls=False)
+        start += b.num_rows
+    emit(phase="pallas_rows_4m", rows=N_4M, batch_rows=sizes,
+         encode_launches=enc, decode_launches=dec, equal_k1=True,
+         roundtrip_bit_exact=True)
+    return {name: enc[name] + dec[name] for name in enc}
+
+
+def _serve_requests(rng, count, lo, hi):
+    """``count`` requests of SERVE_COLS all-valid INT32 columns, each of a
+    row count drawn from [lo, hi]."""
+    return [list(rng.integers(-2**31, 2**31 - 1, (SERVE_COLS, int(n)),
+                              dtype=np.int32))
+            for n in rng.integers(lo, hi + 1, count)]
+
+
+def _hold_serve_rows(data, answers, what):
+    """Each answer of the rows op against convert_to_rows of its own
+    columns through the default route (K1)."""
+    from spark_rapids_jni_tpu_torch import INT32, Table
+    from spark_rapids_jni_tpu_torch.ops import convert_to_rows
+    for i, (cols, a) in enumerate(zip(data, answers)):
+        [want] = convert_to_rows(Table.from_numpy(cols,
+                                                  [INT32] * len(cols)))
+        check(a["num_rows"] == len(cols[0])
+              and np.array_equal(a["rows"],
+                                 want.data.cpu().numpy().reshape(-1)),
+              f"serve rows answer {i} != K1's rows: {what}")
+
+
+def _tick_split(sched, op, data, runs=3) -> dict:
+    """The parts of one tick of the ``rows`` group of ``data``, timed inside
+    passes of the tick's own steps, with a host-clock stamp at a synchronize
+    after each: the host stacking (batch), the one host-to-device copy
+    (stage), the op's kernel (plane assembly and K4), the one
+    device-to-host copy (fetch) and the slicing of each answer (unbatch).
+    Medians over ``runs`` passes, and the median of ``runs`` whole ticks
+    (submission excluded)."""
+    from spark_rapids_jni_tpu_torch.runtime import shapes, staging
+    from spark_rapids_jni_tpu_torch.serve import Client
+    payloads, sigs = [], set()
+    for cols in data:
+        p, sig, _, _ = op.validate({"columns": cols})
+        payloads.append(p)
+        sigs.add(sig)
+    check(len(sigs) == 1, f"tick split over several groups {sigs}")
+    sig = sigs.pop()
+    kb = shapes.bucket_rows(len(payloads))
+    parts, ticks = [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        bufs = op.batch(payloads, sig, kb)
+        t.append(time.perf_counter())
+        staged = staging.stage_arrays(bufs, sched.device)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        outs = op.kernel(sig, kb)(*staged)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        host = staging.fetch_arrays(list(outs))
+        t.append(time.perf_counter())
+        [op.unbatch(host, i, p) for i, p in enumerate(payloads)]
+        t.append(time.perf_counter())
+        parts.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
+        del bufs, staged, outs, host
+        c = Client(sched, "split")
+        futs = [c.to_rows(cols) for cols in data]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.tick()
+        ticks.append((time.perf_counter() - t0) * 1e3)
+        [f.result(timeout=60) for f in futs]
+    names = ("batch_ms", "stage_ms", "kernel_ms", "fetch_ms", "unbatch_ms")
+    out = {name: statistics.median(v) for name, v in zip(names, zip(*parts))}
+    out["parts_total_ms"] = statistics.median(sum(p) for p in parts)
+    out["tick_ms"] = statistics.median(ticks)
+    out["tick_ms_range"] = [min(ticks), max(ticks)]
+    out["runs"] = runs
+    return out
+
+
+def phase_serve_rows(errs, timing):
+    """The serving runtime on the card: a Scheduler() and four Clients.
+    One tick of 16 rows requests at bucket 65,536 (one K4 launch over
+    1,048,576 rows), their round trip through unrows (one K5 launch), a
+    mixed tick of two groups (two K4 launches), and a threaded run of four
+    clients; every answer against K1's rows of its own columns."""
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    from spark_rapids_jni_tpu_torch.runtime import shapes
+    from spark_rapids_jni_tpu_torch.serve import Client, Scheduler
+    from spark_rapids_jni_tpu_torch.serve import ops as serve_ops
+    rng = np.random.default_rng(31)
+    sched = Scheduler()
+    check(sched.device.type == "cuda", f"scheduler on {sched.device}")
+    clients = [Client(sched, f"tenant{i}") for i in range(4)]
+    total = dict.fromkeys(kernels.launches, 0)
+
+    def tick_path(want):
+        served, launches = _read_path(kernels, sched.tick)
+        for name, v in launches.items():
+            total[name] += v
+        check(launches == {**dict.fromkeys(launches, 0), **want},
+              f"serve tick launches {launches}, expected {want}")
+        return served
+
+    t0 = time.perf_counter()
+    data = _serve_requests(rng, SERVE_REQUESTS, *SERVE_ROWS)
+    setup_s = time.perf_counter() - t0
+    check({shapes.bucket_rows(len(c[0])) for c in data} == {SERVE_ROWS[1]},
+          "a serve request outside bucket 65,536")
+    futs = [clients[i % 4].to_rows(c) for i, c in enumerate(data)]
+    check(tick_path({"planes_to_rows": 1}) == SERVE_REQUESTS,
+          "the 16-request tick served another count")
+    answers = [f.result(timeout=60) for f in futs]
+    _hold_serve_rows(data, answers, "one tick")
+    futs = [clients[i % 4].from_rows(a["rows"], SERVE_COLS)
+            for i, a in enumerate(answers)]
+    tick_path({"rows_to_planes": 1})
+    for i, (cols, f) in enumerate(zip(data, futs)):
+        back = f.result(timeout=60)["columns"]
+        check(all(np.array_equal(a, b) for a, b in zip(back, cols)),
+              f"serve round trip {i} changed the columns")
+    del answers, futs
+    mixed = (_serve_requests(rng, 8, *SERVE_ROWS)
+             + _serve_requests(rng, 8, *SERVE_SMALL_ROWS))
+    futs = [clients[i % 4].to_rows(c) for i, c in enumerate(mixed)]
+    tick_path({"planes_to_rows": 2})
+    _hold_serve_rows(mixed, [f.result(timeout=60) for f in futs],
+                     "mixed tick")
+    del mixed, futs
+    split = _tick_split(sched, serve_ops.get("rows"), data)
+    busy = profile_breakdown(lambda: (
+        [clients[i % 4].to_rows(c) for i, c in enumerate(data)],
+        sched.tick()))
+    threaded = [_serve_requests(rng, SERVE_THREAD_REQUESTS,
+                                *SERVE_THREAD_ROWS)
+                for _ in range(len(clients))]
+    results = [[] for _ in clients]
+
+    def client_thread(i):
+        futs = [clients[i].to_rows(c) for c in threaded[i]]
+        results[i].extend(f.result(timeout=120) for f in futs)
+
+    def threaded_run():
+        sched.start()
+        threads = [threading.Thread(target=client_thread, args=(i,))
+                   for i in range(len(clients))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        check(not any(th.is_alive() for th in threads),
+              "a serve client thread did not finish")
+        sched.close()
+
+    ticks_before = sched.ticks
+    _, launches = _read_path(kernels, threaded_run)
+    check(launches["planes_to_rows"] >= 1
+          and sum(launches.values()) == launches["planes_to_rows"],
+          f"threaded serve launches {launches}")
+    total["planes_to_rows"] += launches["planes_to_rows"]
+    for i in range(len(clients)):
+        _hold_serve_rows(threaded[i], results[i], f"thread {i}")
+    counters = {name: sched.total(name) for name in sched.counters}
+    check(counters["fallbacks"] == 0 and counters["tick_errors"] == 0,
+          f"serve counters {counters}")
+    emit(phase="serve_rows", columns=SERVE_COLS, requests=SERVE_REQUESTS,
+         request_rows=[len(c[0]) for c in data], bucket=SERVE_ROWS[1],
+         row_size=serve_ops._rows_layout(SERVE_COLS).fixed_row_size,
+         setup_seconds=setup_s,
+         tick_split=split, profile_tick=busy,
+         threaded={"requests": len(clients) * SERVE_THREAD_REQUESTS,
+                   "ticks": sched.ticks - ticks_before,
+                   "launches": launches["planes_to_rows"]},
+         counters=counters, launches=total, equal_k1=True,
+         roundtrip_bit_exact=True)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1372,6 +1701,7 @@ def main():
                                         runs=10),
         "convert_from_rows_ms": median_ms(
             lambda: convert_from_rows(batches[0], dtypes), runs=10)}
+    add_launches(phase_pallas_rows_1m(table, dtypes, blob, errs, timing))
     del table, batches, blob, gc
 
     # -- 4M rows: two batches under the grouped policy, each kernel against
@@ -1410,6 +1740,7 @@ def main():
     emit(phase="multibatch_4m", rows=N_4M, batch_rows=sizes,
          batch_bytes=[b.data.numel() for b in batches], equal_plain=True,
          roundtrip_bit_exact=True)
+    add_launches(phase_pallas_rows_4m(table, dtypes, gc, errs))
     del gc
 
     # -- the hash and bloom paths
@@ -1444,6 +1775,13 @@ def main():
     check(path_launches["gjo_scan"] > 0,
           f"gjo_scan never launched on its path: {path_launches}")
 
+    # -- the serving runtime: rows/unrows ticks through K4 and K5
+    add_launches(phase_serve_rows(errs, timing))
+    torch.cuda.empty_cache()
+    for name in ("planes_to_rows", "rows_to_planes"):
+        check(path_launches[name] > 0,
+              f"{name} never launched on its paths: {path_launches}")
+
     # -- 64-bit offsets: random planes of N_WIDE rows, so that the index of
     # the last data plane's words (read by the encode) and of the last
     # decoded plane's words (written by the decode) pass 2^31 elements, and
@@ -1464,7 +1802,17 @@ def main():
     errs["grouped_encode"] = max(errs["grouped_encode"],
                                  max_abs_err(rows_k, plain))
     check(torch.equal(rows_k, plain), "wide encode kernel != plain version")
-    del plain, planes
+    del plain
+    # K4 over these planes (rows of 856 bytes) and K5 over the encoded
+    # rows: 8.8 and 10.3 GB each way, element offsets past 2^31
+    _hold_transposes(planes, rows_k, errs, f"{N_WIDE} rows")
+    half = N_WIDE // 2 + 3
+    err = max_abs_err(kernels.planes_to_rows(planes, half, N_WIDE - half),
+                      kernels.planes_to_rows_plain(planes, half,
+                                                   N_WIDE - half))
+    errs["planes_to_rows"] = max(errs["planes_to_rows"], err)
+    check(err == 0, "wide windowed planes_to_rows kernel != plain version")
+    del planes
     pk, vk = kernels.decode_planes(rows_k, layout)
     pp, vp = kernels.decode_planes_plain(rows_k, layout)
     errs["decode_planes"] = max(errs["decode_planes"], max_abs_err(pk, pp),
@@ -1474,6 +1822,8 @@ def main():
     check(torch.equal(vk, vmask), "wide decoded masks != input masks")
     emit(phase="offsets_64bit", rows=N_WIDE, max_plane_index_read=read_max,
          max_plane_index_written=written_max, blob_bytes=N_WIDE * rs,
+         transposed_bytes={"planes_to_rows": 4 * wd * N_WIDE,
+                           "rows_to_planes": N_WIDE * rs},
          equal_plain=True,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
     del rows_k, pk, vk, pp, vp, vmask
@@ -1536,7 +1886,7 @@ def main():
             "replaces": replaces, "launches": path_launches[name],
             "max_abs_err": errs[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-            "bound_by": tm["bound_by"], "library_ms": None})
+            "bound_by": tm["bound_by"], "library_ms": tm.get("library_ms")})
     print(smi, flush=True)
     emit(kernels=kernel_lines)
     emit(ok=True, device={"platform": "gpu",

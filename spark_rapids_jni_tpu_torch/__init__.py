@@ -7,7 +7,8 @@ the reference; this package imports neither JAX nor that package.
   and dense-padded string columns.
 - ``ops.row_conversion``: JCUDF row-format <-> column conversion, the
   flagship op (reference ``src/main/cpp/src/row_conversion.cu``), for
-  fixed-width and dense-padded string tables, and ``compact_rows_host``.
+  fixed-width and dense-padded string tables, and ``compact_rows_host``;
+  ``impl="pallas"`` takes the word-plane engine of ``ops.plane_rows``.
 - ``ops.row_mxu``: word plans, the plane-major table backing and the
   two-stage encode of tables too large to pack whole.
 - ``ops.hashing``: Spark's murmur3 and xxhash64 over columns, and hash
@@ -21,6 +22,11 @@ the reference; this package imports neither JAX nor that package.
   and the row-conversion kernels' wrappers and plain versions;
   ``ops.hash_kernels``: those of the hash and bloom kernels; the JSON path
   automaton's are in ``ops.get_json``.
+- ``serve``: the multi-tenant serving runtime (a continuous-batching
+  ``Scheduler`` and per-tenant ``Client``s) with the ``rows`` and
+  ``unrows`` ops.
+- ``runtime``: the shape-bucket grid, coalesced host <-> device staging
+  and the failure taxonomy the serving runtime uses.
 - ``utils.datagen``: seeded random tables (fixed-width and padded string
   columns), made on the device.
 - ``interop``: tables, backings and row batches to and from numpy, to hold

@@ -1,7 +1,10 @@
 """Ops of the PyTorch port: row conversion (fixed-width and dense-padded
-string tables), Spark hashing and hash partitioning, the Spark bloom
+string tables; ``impl="pallas"`` takes the word-plane engine of
+:mod:`.plane_rows`), Spark hashing and hash partitioning, the Spark bloom
 filter, and ``get_json_object`` (key and subscript paths over dense-padded
-string columns)."""
+string columns).  The serving runtime over the row ops is
+``spark_rapids_jni_tpu_torch.serve``; its grid and staging are
+``spark_rapids_jni_tpu_torch.runtime``."""
 
 from spark_rapids_jni_tpu_torch.ops.row_layout import (  # noqa: F401
     JCUDF_ROW_ALIGNMENT, MAX_BATCH_BYTES, MAX_ROW_SIZE, RowLayout,

@@ -11,6 +11,11 @@ row-conversion kernels' wrappers and plain PyTorch versions.
   ``row_mxu.py::_pack_kernel``: a batch of a table's columns to its forward
   word planes, validity quads included (the first stage of the two-stage
   encode, ``row_mxu.to_rows_fixed``).
+- :func:`planes_to_rows` (``csrc/planes_to_rows.cu``) replaces
+  ``pallas_kernels.py::_pack_kernel`` and :func:`rows_to_planes`
+  (``csrc/rows_to_planes.cu``) its ``_unpack_kernel``: the word transposes
+  between a row's 32-bit word planes and its bytes, under the word-plane
+  engine (:mod:`.plane_rows`).
 - The hash and bloom-probe kernels (``csrc/murmur3.cu``,
   ``csrc/xxhash64.cu``, ``csrc/bloom_probe.cu``) build here too; their
   wrappers and plain versions are in :mod:`.hash_kernels`.  So does the
@@ -50,7 +55,7 @@ from spark_rapids_jni_tpu_torch.ops.row_layout import RowLayout
 # launches of each kernel since the last reset_launches()
 launches = {"grouped_encode": 0, "decode_planes": 0, "pack_planes": 0,
             "murmur3_cols": 0, "xxhash64_cols": 0, "bloom_might_contain": 0,
-            "gjo_scan": 0}
+            "gjo_scan": 0, "planes_to_rows": 0, "rows_to_planes": 0}
 
 
 def reset_launches():
@@ -67,7 +72,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = {"grouped_encode": "row_encode.cu", "decode_planes": "row_decode.cu",
            "pack_planes": "pack_planes.cu", "murmur3_cols": "murmur3.cu",
            "xxhash64_cols": "xxhash64.cu",
-           "bloom_might_contain": "bloom_probe.cu", "gjo_scan": "gjo_scan.cu"}
+           "bloom_might_contain": "bloom_probe.cu", "gjo_scan": "gjo_scan.cu",
+           "planes_to_rows": "planes_to_rows.cu",
+           "rows_to_planes": "rows_to_planes.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -112,6 +119,10 @@ _ENTRY = {
         _VP, _I64, _I32, _VP, _I32, _VP, _I64, _VP, _I32, _VP]),
     "gjo_scan": ("srj_gjo_scan", [
         _VP, _I64, _I64, _I32, _VP, _I32, _VP, _I32, _VP, _I32, _VP]),
+    "planes_to_rows": ("srj_planes_to_rows", [
+        _VP, _I64, _I32, _I64, _I64, _VP, _I32, _VP]),
+    "rows_to_planes": ("srj_rows_to_planes", [_VP, _I64, _I32, _VP, _I32,
+                                              _VP]),
 }
 
 
@@ -506,5 +517,91 @@ def pack_planes(table: Table, layout: RowLayout, start: int,
     if size:
         cols = _pack_cols(table, layout)
         launch("pack_planes", ctypes.addressof(cols), start, size,
+               out.data_ptr(), dev.index, stream_of(dev))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4: planes_to_rows, K5: rows_to_planes
+# ---------------------------------------------------------------------------
+
+def _check_tiles(num_words: int, n: int):
+    """The transposes launch one block per 32 x 32 tile of words, on a
+    one-dimensional grid of at most 2^31 - 1 blocks
+    (``csrc/word_transpose.cuh``)."""
+    tiles = -(-num_words // 32) * -(-n // 32)
+    _check(tiles < 1 << 31, f"{n} rows of {num_words} words take {tiles} "
+                            f"tiles, over the grid's 2^31 - 1")
+
+
+def _check_planes(planes: torch.Tensor, start: int, size: int):
+    _check(planes.dtype == torch.int32 and planes.dim() == 2
+           and planes.shape[0] > 0,
+           f"planes must be int32 [W >= 1, n], got {planes.dtype} "
+           f"{tuple(planes.shape)}")
+    _check(planes.is_contiguous(), "planes must be contiguous")
+    _check(0 <= start and 0 <= size and start + size <= planes.shape[1],
+           f"window [{start}, {start + size}) outside {planes.shape[1]} "
+           f"rows")
+    _check_tiles(planes.shape[0], size)
+
+
+def planes_to_rows_plain(planes: torch.Tensor, start: int,
+                         size: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`planes_to_rows`: the window's
+    transpose, copied, as bytes."""
+    _check_planes(planes, start, size)
+    return planes[:, start:start + size].t().contiguous().view(torch.uint8)
+
+
+def planes_to_rows(planes: torch.Tensor, start: int,
+                   size: int) -> torch.Tensor:
+    """K4: rows uint8 ``[size, 4 * W]`` of columns ``[start, start +
+    size)`` of int32 word planes ``[W, n]``: byte ``4j + t`` of row ``r``
+    is byte ``t`` of ``planes[j, start + r]``."""
+    _check_planes(planes, start, size)
+    dev = planes.device
+    if dev.type == "cpu":
+        return planes_to_rows_plain(planes, start, size)
+    _check(dev.type == "cuda", f"no kernel for device {dev}")
+    num_words = planes.shape[0]
+    out = torch.empty((size, 4 * num_words), dtype=torch.uint8, device=dev)
+    if size:
+        launch("planes_to_rows", planes.data_ptr(), planes.shape[1],
+               num_words, start, size, out.data_ptr(), dev.index,
+               stream_of(dev))
+    return out
+
+
+def _check_rows(rows2d: torch.Tensor):
+    _check(rows2d.dtype == torch.uint8 and rows2d.dim() == 2
+           and rows2d.shape[1] % 4 == 0 and rows2d.shape[1] > 0,
+           f"rows must be uint8 [n, 4 * W] with W >= 1, got "
+           f"{rows2d.dtype} {tuple(rows2d.shape)}")
+    _check(rows2d.is_contiguous() and rows2d.data_ptr() % 4 == 0,
+           "rows must be contiguous and 4-byte aligned")
+    _check_tiles(rows2d.shape[1] // 4, rows2d.shape[0])
+
+
+def rows_to_planes_plain(rows2d: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`rows_to_planes`: the rows' words,
+    transposed and copied."""
+    _check_rows(rows2d)
+    return rows2d.view(torch.int32).t().contiguous()
+
+
+def rows_to_planes(rows2d: torch.Tensor) -> torch.Tensor:
+    """K5: int32 word planes ``[W, n]`` of rows uint8 ``[n, 4 * W]``:
+    ``planes[j, r]`` is bytes ``4j .. 4j + 3`` of row ``r``, the inverse of
+    :func:`planes_to_rows`."""
+    _check_rows(rows2d)
+    dev = rows2d.device
+    if dev.type == "cpu":
+        return rows_to_planes_plain(rows2d)
+    _check(dev.type == "cuda", f"no kernel for device {dev}")
+    n, num_words = rows2d.shape[0], rows2d.shape[1] // 4
+    out = torch.empty((num_words, n), dtype=torch.int32, device=dev)
+    if n:
+        launch("rows_to_planes", rows2d.data_ptr(), n, num_words,
                out.data_ptr(), dev.index, stream_of(dev))
     return out

@@ -18,6 +18,13 @@ The PyTorch counterpart of ``spark_rapids_jni_tpu.ops.row_conversion``
   32-row-aligned batches of at most ``min(size_limit, 1 GiB)``, so that
   only one batch is held beside the table.
 - Fixed-width decode: one decode kernel a batch (``kernels.decode_planes``).
+- ``impl="pallas"`` (or ``use_pallas=True``) takes the word-plane engine of
+  :mod:`.plane_rows` instead, as the JAX package's ``impl="pallas"`` does:
+  the encode assembles each batch's word planes and runs one pack kernel
+  launch a batch (``kernels.planes_to_rows``), in the batches of
+  :func:`plan_equal_batches` of at most ``min(size_limit, 1 GiB)``; the
+  decode runs one unpack kernel launch (``kernels.rows_to_planes``) and cuts
+  the columns out of the planes.
 - Dense-padded strings: every row has the same size, the fixed section
   (each string slot's uint32 pair holding its char slot's start and the
   string's length) then one ``W``-byte char slot per string column, slack
@@ -42,9 +49,8 @@ import torch
 
 from spark_rapids_jni_tpu_torch.table import (
     BITS_DTYPES, Column, DType, Table, bits_view, pack_bools, resolve_device,
-    valid_bits,
 )
-from spark_rapids_jni_tpu_torch.ops import kernels, row_mxu
+from spark_rapids_jni_tpu_torch.ops import kernels, plane_rows, row_mxu
 from spark_rapids_jni_tpu_torch.ops.row_layout import (
     MAX_BATCH_BYTES, RowLayout, compute_row_layout,
 )
@@ -211,19 +217,41 @@ def _grouped_layout(dtypes: Sequence[DType]) -> RowLayout:
     return layout
 
 
+def _resolve_impl(impl: Optional[str], use_pallas: Optional[bool]) -> str:
+    """The fixed-width engine for explicit arguments, as the JAX package's
+    ``_resolve_impl`` picks it: ``"mxu"`` (the default: the plane-major
+    backing's kernels) or ``"pallas"`` (the word-plane engine).  The port
+    has no generic engine, so ``"xla"`` and ``use_pallas=False`` raise."""
+    if impl is None:
+        impl = {None: "mxu", True: "pallas", False: "xla"}[use_pallas]
+    if impl not in ("mxu", "xla", "pallas"):
+        raise ValueError(f"unknown impl {impl!r}; "
+                         "expected 'mxu', 'xla' or 'pallas'")
+    if impl == "xla":
+        raise NotImplementedError(
+            "the port has no generic (XLA) row engine: it waits for the "
+            "row-conversion glue item (ROADMAP.md queue 1, item 5); use "
+            "impl='mxu' or impl='pallas'")
+    return impl
+
+
 def convert_to_rows(table: Table, *, size_limit: int = MAX_BATCH_BYTES,
+                    use_pallas: Optional[bool] = None,
+                    impl: Optional[str] = None,
                     device=None) -> List[RowsColumn]:
     """Convert a table to JCUDF row batches (reference ``convert_to_rows``,
     ``row_conversion.cu:1902-1960``) on ``device`` (default: the CUDA
     card).  A table with string columns takes the dense-padded encode; a
     fixed-width one one pack and one encode kernel per batch, or above
-    :data:`_FUSED_PREP_CAP` the two-stage encode batch by batch (see the
-    module docstring)."""
+    :data:`_FUSED_PREP_CAP` the two-stage encode batch by batch, or with
+    ``impl="pallas"`` the word-plane engine (see the module docstring)."""
     dev = resolve_device(device)
     layout = compute_row_layout(table.dtypes)
     table = table.to(dev)
     if layout.has_strings:
         return _to_rows_variable_padded(table, layout, size_limit)
+    if _resolve_impl(impl, use_pallas) == "pallas":
+        return _to_rows_planes(table, layout, size_limit)
     prep_bytes = (sum(c.data.numel() * c.data.element_size()
                       for c in table.columns)
                   + layout.num_columns * table.num_rows // 8)
@@ -237,6 +265,15 @@ def _to_rows_two_stage(table: Table, layout: RowLayout,
                        size_limit: int) -> List[RowsColumn]:
     rs = layout.fixed_row_size
     return [RowsColumn(row_mxu.to_rows_fixed(table, layout, start, size),
+                       _offsets(size, rs, table.device))
+            for start, size in plan_equal_batches(
+                table.num_rows, rs, min(size_limit, _XLA_CHUNK))]
+
+
+def _to_rows_planes(table: Table, layout: RowLayout,
+                    size_limit: int) -> List[RowsColumn]:
+    rs = layout.fixed_row_size
+    return [RowsColumn(plane_rows.to_rows_fixed(table, layout, start, size),
                        _offsets(size, rs, table.device))
             for start, size in plan_equal_batches(
                 table.num_rows, rs, min(size_limit, _XLA_CHUNK))]
@@ -274,11 +311,14 @@ def _rows2d_on(rows: RowsColumn, row_size: int, dev) -> torch.Tensor:
 
 
 def convert_from_rows(rows: RowsColumn, dtypes: Sequence[DType], *,
-                      device=None) -> Table:
+                      use_pallas: Optional[bool] = None,
+                      impl: Optional[str] = None, device=None) -> Table:
     """Convert one batch of JCUDF rows back to a table (reference
     ``convert_from_rows``, ``row_conversion.cu:2032-2250``): one decode
     kernel, then one column per field; a dense-padded string batch's char
-    slots are sliced out after it."""
+    slots are sliced out after it.  ``impl="pallas"`` (or
+    ``use_pallas=True``) decodes a fixed-width batch through the word-plane
+    engine."""
     dev = resolve_device(device)
     layout = compute_row_layout(dtypes)
     if layout.has_strings:
@@ -288,8 +328,10 @@ def convert_from_rows(rows: RowsColumn, dtypes: Sequence[DType], *,
                 "for a later slice of the PyTorch port; this one decodes "
                 "dense-padded batches")
         return _from_rows_variable_padded(rows, layout, dev)
-    return Table(tuple(row_mxu.from_rows_fixed(
-        _rows2d_on(rows, layout.fixed_row_size, dev), layout)))
+    rows2d = _rows2d_on(rows, layout.fixed_row_size, dev)
+    if _resolve_impl(impl, use_pallas) == "pallas":
+        return Table(tuple(plane_rows.from_rows_fixed(rows2d, layout)))
+    return Table(tuple(row_mxu.from_rows_fixed(rows2d, layout)))
 
 
 def convert_from_rows_grouped(rows: RowsColumn, dtypes: Sequence[DType], *,
@@ -540,13 +582,9 @@ def _validity_row_bytes(table: Table, layout: RowLayout, start: int = 0,
     valid."""
     if size is None:
         size = table.num_rows - start
-    dev, vb = table.device, layout.validity_bytes
     if not table.columns:
-        return torch.zeros((size, 0), dtype=torch.uint8, device=dev)
-    bits = torch.nn.functional.pad(valid_bits(table.columns, start, size),
-                                   (0, 0, 0, 8 * vb - len(table.columns)))
-    shifts = torch.arange(8, dtype=torch.uint8, device=dev)[:, None]
-    return (bits.view(vb, 8, size) << shifts).sum(1, dtype=torch.uint8).T
+        return torch.zeros((size, 0), dtype=torch.uint8, device=table.device)
+    return plane_rows._validity_byte_planes(table, layout, start, size).T
 
 
 def _oracle_to_rows(table: Table, layout: RowLayout) -> torch.Tensor:

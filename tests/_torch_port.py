@@ -83,7 +83,12 @@ def both_string_columns(rng, n, W, null_mode="some"):
 def both_tables(rng, names, n, null_mode="some"):
     """The same random table in both packages: (JAX Table, port Table on
     the CPU)."""
-    cols = numpy_columns(rng, names, n, null_mode)
+    return tables_from_columns(numpy_columns(rng, names, n, null_mode))
+
+
+def tables_from_columns(cols):
+    """The table of :func:`numpy_columns`' ``(name, values, validity)``
+    tuples in both packages: (JAX Table, port Table on the CPU)."""
     jax_table = jt.Table(tuple(jt.Column.from_numpy(v, jax_dtype(name), ok)
                                for name, v, ok in cols))
     port = pt.Table(tuple(

@@ -127,6 +127,10 @@ def test_launches_count_kernel_runs_only(cuda):
     assert torch.equal(gj.gjo_scan(ch, (b"a",), 1),
                        gj.gjo_scan_plain(ch, (b"a",), 1))
     assert gj.gjo_scan(ch[:0], (b"a",), 1).shape == (6, 0)
+    rows4 = kernels.planes_to_rows(planes, 5, 90)
+    assert torch.equal(rows4, kernels.planes_to_rows_plain(planes, 5, 90))
+    assert torch.equal(kernels.rows_to_planes(rows4),
+                       kernels.rows_to_planes_plain(rows4))
     want = dict.fromkeys(kernels.launches, 1)
     assert kernels.launches == want
     empty = kernels.decode_planes(rows[:0], layout)
@@ -134,6 +138,9 @@ def test_launches_count_kernel_runs_only(cuda):
     no_rows = Column(INT64, t.columns[0].data[:0])
     assert hk.murmur3_cols([no_rows], 42).shape == (0,)
     assert hk.xxhash64_cols([no_rows], 42).shape == (0,)
+    assert kernels.planes_to_rows(planes, 97, 0).shape == (
+        0, 4 * planes.shape[0])
+    assert kernels.rows_to_planes(rows4[:0]).shape == (planes.shape[0], 0)
     assert kernels.launches == want
 
 
@@ -356,3 +363,82 @@ def test_get_json_object_on_the_card_matches_the_cpu(cuda):
             assert torch.equal(got.chars2d.cpu(), want.chars2d), path
             assert torch.equal(got.lens.cpu(), want.lens), path
             assert torch.equal(got.validity.cpu(), want.validity), path
+
+
+def _random_planes(num_words, n, seed, device):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.randint(0, 256, (num_words, 4 * n), dtype=torch.uint8,
+                         device=device, generator=gen).view(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_words", [2, 31, 33, 252])
+@pytest.mark.parametrize("n", [1, 37, 6 * 1024 + 557])
+def test_word_transposes_match_plain_versions(cuda, num_words, n):
+    """K4 over whole and windowed planes and K5 over its rows against their
+    plain versions, at one INT32 column's two words, ragged word tiles and
+    the 212-column schema's 252; K5 inverts K4."""
+    planes = _random_planes(num_words, n, n + num_words, cuda)
+    start = min(3, n - 1)
+    for s, size in {(0, n), (start, n - start), (n // 3, (n - n // 3) // 2)}:
+        assert torch.equal(kernels.planes_to_rows(planes, s, size),
+                           kernels.planes_to_rows_plain(planes, s, size))
+    rows = kernels.planes_to_rows(planes, 0, n)
+    back = kernels.rows_to_planes(rows)
+    assert torch.equal(back, kernels.rows_to_planes_plain(rows))
+    assert torch.equal(back, planes)
+
+
+@pytest.mark.gpu
+def test_word_transposes_past_2_31_bytes(cuda):
+    num_words, n = 64, 8_400_000
+    assert 4 * num_words * n > 1 << 31
+    planes = _random_planes(num_words, n, 5, cuda)
+    rows = kernels.planes_to_rows(planes, 0, n)
+    assert torch.equal(rows, kernels.planes_to_rows_plain(planes, 0, n))
+    del planes
+    back = kernels.rows_to_planes(rows)
+    assert torch.equal(back, kernels.rows_to_planes_plain(rows))
+
+
+@pytest.mark.gpu
+def test_unpack_kernel_rejects_unaligned_rows(cuda):
+    buf = torch.zeros(1024, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        kernels.rows_to_planes(buf[2:98].view(12, 8))
+    with pytest.raises(ValueError, match="4 \\* W"):
+        kernels.rows_to_planes(buf[:60].view(6, 10))
+
+
+@pytest.mark.gpu
+def test_pallas_route_and_serve_on_the_card_match_the_cpu(cuda):
+    """``impl="pallas"`` on the card (one K4 launch to encode, one K5 to
+    decode) and the serve ops on the card (one launch a tick) equal the
+    CPU runs."""
+    import numpy as np
+    from spark_rapids_jni_tpu_torch import serve
+    t = random_table(WIDE, 3001, seed=3, null_probability=0.25,
+                     device="cpu")
+    want = prc.convert_to_rows(t, impl="pallas", device="cpu")
+    kernels.reset_launches()
+    got = prc.convert_to_rows(t, impl="pallas", device=cuda)
+    back = prc.convert_from_rows(got[0], WIDE, impl="pallas", device=cuda)
+    assert (kernels.launches["planes_to_rows"],
+            kernels.launches["rows_to_planes"]) == (1, 1)
+    assert torch.equal(got[0].data.cpu(), want[0].data)
+    assert_tables_equivalent(t, back.to("cpu"), check_nulls=False)
+    rng = np.random.default_rng(0)
+    cols = [rng.integers(-2**31, 2**31 - 1, 1000).astype(np.int32)
+            for _ in range(212)]
+    answers = []
+    for device in ("cpu", cuda):
+        with serve.Scheduler(device=device) as s:
+            c = serve.Client(s, "alice")
+            rows = c.to_rows(cols).result(timeout=60)["rows"]
+            back = c.from_rows(rows, 212).result(timeout=60)["columns"]
+        answers.append((rows, back))
+    np.testing.assert_array_equal(answers[0][0], answers[1][0])
+    for a, b, orig in zip(answers[0][1], answers[1][1], cols):
+        np.testing.assert_array_equal(a, orig)
+        np.testing.assert_array_equal(b, orig)
