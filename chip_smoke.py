@@ -36,6 +36,16 @@ launch count set to 0 just before the path and read just after:
   212-column schema in one batch, one pack (K4) and one unpack (K5)
   launch, byte-equal to the default route's batch; 4M rows in four
   batches of one K4 launch each;
+- the per-column-block engine ``ops.row_kernels`` (K10 encode, K11 decode)
+  at 1M rows of the 212-column schema, with ``bucket=None`` (one launch
+  each way, rows byte-equal to K1's) and with the default ``"auto"``
+  (padded to 1,048,576 rows), and ``to_rows_fixed_batch`` over the 4M
+  table in four batches of one K10 launch each, every batch equal to K1's;
+  the generic ``impl="xla"`` engine at 1M rows (no kernel, rows equal to
+  K1's); and 1M rows of 56 ``cycle_dtypes`` columns and 8 decimal128
+  columns (scales 0, 2, 10, 38, values up to +/-(10^38 - 1), 25% nulls)
+  through every fixed-width engine (K1/K2, K4/K5, ``xla``, the gather
+  oracle, K10/K11), every blob byte-equal;
 - the serving runtime (``serve``): a ``Scheduler()`` on the card and four
   ``Client``s; one tick of 16 ``to_rows`` requests of 212 INT32 columns
   and 33,000 to 65,536 rows (one K4 launch over 16 x 65,536 rows), their
@@ -50,14 +60,17 @@ column of 24M rows of 96 bytes, a filter of 2^31 + 64 bits) and at edge
 shapes, types and null patterns (K3 at odd starts, the padded decode at
 string widths 0, 4 and 32, hash chains of 801 and 1600 columns, K9 over
 600,000 rows of 4096 bytes, K4 and K5 over 10.24M rows of 856 and 1008
-bytes).  Row conversion round trips must give back their input bit for bit,
-string lengths and chars included; partition ids must equal those of the
-original columns; the bloom probe must equal the host probe, keep every
-build key and give False for nulls.  Each kernel is timed, its bound being
-the larger of the bytes it must move over the card's memory rate and the
-arithmetic instructions its work needs over the card's issue rate; K4 and
-K5 also beside the one PyTorch call that computes the same function, a
-transposing copy (``library_ms``).
+bytes, K10 and K11 at 1 to 1000 rows, odd starts, 910 1-byte columns and
+over 10.24M rows of 1008 bytes). Row conversion round trips must give back
+their input bit for bit, string lengths and chars included; partition ids
+must equal those of the original columns; the bloom probe must equal the
+host probe, keep every build key and give False for nulls. Each kernel is
+timed, its bound being the larger of the bytes it must move over the card's
+memory rate and the arithmetic instructions its work needs over the card's
+issue rate; K4 and K5 also beside the one PyTorch call that computes the
+same function, a transposing copy (``library_ms``); K10 and K11 also as
+bare launches (``kernel_ms``), without their wrappers' host work, and at
+three tile sizes.
 
 Each phase prints one JSON line.  Near the end come the card's name and
 power limit (``nvidia-smi``) and one ``{"kernels": [...]}`` line; the last
@@ -65,7 +78,7 @@ line is ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero and does not print that line, as it does when no CUDA
 card is present or the package is not beside it.  It needs no arguments,
 one card and no network; its device memory peaks at about 43 GB (the 10.24M
-row phase).
+row phase), which the timing line prints.
 """
 
 import json
@@ -167,6 +180,8 @@ KERNELS = (  # name, the TPU kernel it replaces
     ("gjo_scan", "spark_rapids_jni_tpu/ops/pallas_kernels.py:742"),
     ("planes_to_rows", "spark_rapids_jni_tpu/ops/pallas_kernels.py:365"),
     ("rows_to_planes", "spark_rapids_jni_tpu/ops/pallas_kernels.py:210"),
+    ("to_rows_cols", "spark_rapids_jni_tpu/ops/row_kernels.py:63"),
+    ("from_rows_cols", "spark_rapids_jni_tpu/ops/row_kernels.py:149"),
 )
 
 
@@ -248,6 +263,16 @@ def profile_breakdown(fn, top=8) -> dict:
             "top_kernels": [[name[:60], ms, count]
                             for name, (ms, count) in ranked],
             "top_ops": [list(t) for t in ops[:top]]}
+
+
+_PEAKS = [0]
+
+
+def reset_peak():
+    """Reset the card's peak-memory counter for a phase, keeping the peak
+    so far for the script's own (printed with the timing line)."""
+    _PEAKS[0] = max(_PEAKS[0], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
 
 
 def copy_ms(nbytes: int) -> float:
@@ -571,7 +596,7 @@ def phase_hash_offsets_64bit(errs):
     )
     from spark_rapids_jni_tpu_torch.table import Column
     from spark_rapids_jni_tpu_torch.utils import random_strings
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     strs = random_strings(N_WIDE_STRINGS, W_WIDE_STRINGS, seed=6)
     chars_bytes = strs.chars2d.numel()
     check(chars_bytes > 1 << 31, "the string phase does not pass 2^31")
@@ -882,7 +907,7 @@ def phase_pack_planes_6m(dtypes, errs, timing):
     from spark_rapids_jni_tpu_torch.ops import row_conversion
     from spark_rapids_jni_tpu_torch.table import slice_table
     from spark_rapids_jni_tpu_torch.utils import random_table
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     layout = compute_row_layout(dtypes)
     table = random_table(dtypes, N_6M, seed=6, null_probability=0.25)
     prep = (sum(c.data.numel() * c.data.element_size()
@@ -1148,7 +1173,7 @@ def phase_get_json_1m(errs, timing):
     rows = np.union1d(rng.choice(N_GJO, N_GJO_SAMPLE, replace=False),
                       np.nonzero(special)[0])
     total, per_path = {}, {}
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     for path in GJO_PATHS:
         out, launches = _read_path(kernels,
                                    lambda: get_json_object(col, path))
@@ -1211,7 +1236,7 @@ def phase_get_json_4m_compact(errs, timing):
     from spark_rapids_jni_tpu_torch.ops import get_json_object, kernels
     from spark_rapids_jni_tpu_torch.ops import get_json as gj
     col, v = _compact_docs(N_4M)
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     out, launches = _read_path(kernels, lambda: get_json_object(col, "$.a"))
     peak = torch.cuda.max_memory_allocated()
     check(launches["gjo_scan"] == 1 and sum(launches.values()) == 1,
@@ -1247,7 +1272,7 @@ def phase_gjo_offsets_64bit(errs):
     100 to 4096 bytes, repeated in a random order on the card."""
     from spark_rapids_jni_tpu_torch import Column
     from spark_rapids_jni_tpu_torch.utils import json_event_docs
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     docs, _ = json_event_docs(20_000, seed=23, lengths=(100, W_GJO_WIDE))
     base = Column.strings_padded(docs, pad_to=W_GJO_WIDE, device=CARD)
     gen = torch.Generator(device=CARD)
@@ -1398,6 +1423,420 @@ def phase_pallas_rows_4m(table, dtypes, gc, errs):
          encode_launches=enc, decode_launches=dec, equal_k1=True,
          roundtrip_bit_exact=True)
     return {name: enc[name] + dec[name] for name in enc}
+
+
+# ---------------------------------------------------------------------------
+# The per-column-block engine (K10, K11), impl="xla" and decimal128
+# ---------------------------------------------------------------------------
+
+def _row_cols_bytes(table, layout, size: int) -> dict:
+    """K10's bound for ``size`` rows of ``table`` (each value and the bytes
+    of each mask read once, each row written once); K11's is the same
+    bytes the other way, every column's mask written."""
+    masked = sum(c.validity is not None for c in table.columns)
+    values = sum(layout.col_sizes) * size
+    rows = layout.fixed_row_size * size
+    k10 = values + masked * -(-size // 8) + rows
+    k11 = rows + values + layout.num_columns * -(-size // 8)
+    return {name: {"bytes": b, "bound_ms": b / PEAK_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes"}
+            for name, b in (("to_rows_cols", k10), ("from_rows_cols", k11))}
+
+
+def _hold_row_cols(table, layout, start, size, errs, what, rows=None):
+    """K10 over rows [start, start + size) of ``table`` and K11 over its
+    rows against their plain versions, and K11's columns against the
+    table's own rows; ``rows``: K10's rows, already made."""
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    from spark_rapids_jni_tpu_torch.table import (
+        bits_view, pack_bools, valid_bits,
+    )
+    if rows is None:
+        rows = kernels.to_rows_cols(table, layout, start, size)
+    err = max_abs_err(rows, kernels.to_rows_cols_plain(table, layout, start,
+                                                       size))
+    errs["to_rows_cols"] = max(errs["to_rows_cols"], err)
+    check(err == 0, f"to_rows_cols kernel != plain version: {what}")
+    datas, vmask = kernels.from_rows_cols(rows, layout)
+    pdatas, pvmask = kernels.from_rows_cols_plain(rows, layout)
+    # values compare by bits: NaN payloads are not equal to themselves
+    err = max([max_abs_err(vmask, pvmask)]
+              + [max_abs_err(bits_view(d), bits_view(p))
+                 for d, p in zip(datas, pdatas)])
+    errs["from_rows_cols"] = max(errs["from_rows_cols"], err)
+    check(err == 0, f"from_rows_cols kernel != plain version: {what}")
+    check(torch.equal(vmask, pack_bools(valid_bits(table.columns, start,
+                                                   size)))
+          and all(torch.equal(bits_view(d),
+                              bits_view(c.data[start:start + size]))
+                  for d, c in zip(datas, table.columns)),
+          f"K11 of K10's rows != the table: {what}")
+
+
+def _row_cols_launches(table, layout, rows, tile_rows=0) -> dict:
+    """K10 over ``table`` and K11 over ``rows`` as bare launches, their
+    arguments, outputs and the column structure made once beforehand: the
+    kernels' own time, where a wrapper call also times the host work that
+    the flush does not cover (the checks and the structure at 212 columns,
+    K11's 212 output views)."""
+    import ctypes
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    dev = rows.device
+    n = table.num_rows
+    tile = kernels.tile_rows_for(layout, tile_rows)
+    out = torch.empty_like(rows)
+    datas = kernels._column_buffers(layout, n, dev)
+    vmask = torch.empty((layout.num_columns, (n + 7) // 8),
+                        dtype=torch.uint8, device=dev)
+    enc = kernels._row_cols(layout, [c.data for c in table.columns],
+                            [c.validity for c in table.columns])
+    dec = kernels._row_cols(layout, datas)
+    stream = kernels.stream_of(dev)
+
+    def to_rows():
+        kernels.launch("to_rows_cols", ctypes.addressof(enc), 0, n, tile,
+                       out.data_ptr(), dev.index, stream)
+        return enc, out
+
+    def from_rows():
+        kernels.launch("from_rows_cols", ctypes.addressof(dec),
+                       rows.data_ptr(), n, tile, vmask.data_ptr(),
+                       vmask.shape[1], dev.index, stream)
+        return dec, datas, vmask
+
+    return {"to_rows_cols": to_rows, "from_rows_cols": from_rows}
+
+
+def phase_row_kernels_1m(table, dtypes, blob, errs, timing):
+    """ops.row_kernels at 1M rows of the 212-column schema: with
+    bucket=None one K10 launch, rows byte-equal to the default route's
+    batch ``blob`` (K1), and one K11 launch that gives the table back bit
+    for bit; then with the default bucket="auto", which pads to 1,048,576
+    rows; K10 and K11 against their plain versions, timed beside their
+    bounds, the whole calls timed and the pad's share of the auto call."""
+    from spark_rapids_jni_tpu_torch.ops import (
+        compute_row_layout, kernels, row_kernels,
+    )
+    from spark_rapids_jni_tpu_torch.runtime import shapes
+    from spark_rapids_jni_tpu_torch.table import (
+        Table, assert_tables_equivalent,
+    )
+    layout = compute_row_layout(dtypes)
+    counts = dict.fromkeys(kernels.launches, 0)
+    out = {}
+    for bucket in (None, "auto"):
+        rows, enc = _read_path(kernels, lambda: row_kernels.to_rows_fixed(
+            table, layout, bucket=bucket))
+        check(enc["to_rows_cols"] == 1 and sum(enc.values()) == 1,
+              f"row_kernels encode launches {enc}, bucket={bucket}")
+        check(torch.equal(rows, blob),
+              f"row_kernels rows != the default route's (K1), "
+              f"bucket={bucket}")
+        cols, dec = _read_path(kernels, lambda: row_kernels.from_rows_fixed(
+            rows, layout, bucket=bucket))
+        check(dec["from_rows_cols"] == 1 and sum(dec.values()) == 1,
+              f"row_kernels decode launches {dec}, bucket={bucket}")
+        assert_tables_equivalent(table, Table(cols), check_nulls=False)
+        del cols
+        for name in counts:
+            counts[name] += enc[name] + dec[name]
+        out[str(bucket)] = {"encode": {k: v for k, v in enc.items() if v},
+                            "decode": {k: v for k, v in dec.items() if v}}
+    _hold_row_cols(table, layout, 0, N_1M, errs, "1M rows of 212 columns",
+                   rows=blob)
+    bounds = _row_cols_bytes(table, layout, N_1M)
+    launch_only = _row_cols_launches(table, layout, blob)
+    for name, fn, plain_fn in (
+            ("to_rows_cols",
+             lambda: kernels.to_rows_cols(table, layout, 0, N_1M),
+             lambda: kernels.to_rows_cols_plain(table, layout, 0, N_1M)),
+            ("from_rows_cols", lambda: kernels.from_rows_cols(blob, layout),
+             lambda: kernels.from_rows_cols_plain(blob, layout))):
+        timing[name] = {"rows": N_1M, "ms": median_ms(fn, flush=True),
+                        "kernel_ms": median_ms(launch_only[name],
+                                               flush=True),
+                        "plain_ms": median_ms(plain_fn, runs=5, warmup=1,
+                                              flush=True),
+                        "library_ms": None, **bounds[name]}
+    sweep = {f"{name}_tile{tile}_ms": median_ms(
+        _row_cols_launches(table, layout, blob, tile)[name], flush=True)
+        for tile in (32, 64, 128) for name in launch_only}
+    b = shapes.bucket_rows(N_1M)
+    calls = {
+        "to_rows_fixed_ms": median_ms(lambda: row_kernels.to_rows_fixed(
+            table, layout, bucket=None), runs=10),
+        "to_rows_fixed_auto_ms": median_ms(lambda: row_kernels.to_rows_fixed(
+            table, layout), runs=10),
+        "pad_table_ms": median_ms(lambda: shapes.pad_table(table, b),
+                                  runs=10),
+        "from_rows_fixed_ms": median_ms(lambda: row_kernels.from_rows_fixed(
+            blob, layout, bucket=None), runs=10),
+        "from_rows_fixed_auto_ms": median_ms(
+            lambda: row_kernels.from_rows_fixed(blob, layout), runs=10)}
+    calls["pad_share_of_auto_call"] = (calls["pad_table_ms"]
+                                       / calls["to_rows_fixed_auto_ms"])
+    timing["row_kernels_1m"] = calls
+    emit(phase="row_kernels_1m", rows=N_1M, bucket_rows=b, row_size=
+         layout.fixed_row_size, launches=out, equal_k1=True,
+         roundtrip_bit_exact=True, equal_plain=True,
+         **{name: timing[name] for name in bounds}, tile_sweep=sweep,
+         **calls)
+    return counts
+
+
+def phase_row_kernels_4m(table, dtypes, gc, errs):
+    """to_rows_fixed_batch over the 4M table in the batches convert_to_rows
+    plans for its batch-sliced engines (four of 1M rows under the 1 GiB
+    chunk): one K10 launch a batch, each equal to K1's rows and to K10's
+    plain version, each decoded by K11 back to the table's rows."""
+    from spark_rapids_jni_tpu_torch.ops import (
+        compute_row_layout, kernels, plan_equal_batches, row_conversion,
+        row_kernels,
+    )
+    layout = compute_row_layout(dtypes)
+    plan = plan_equal_batches(N_4M, layout.fixed_row_size,
+                              row_conversion._XLA_CHUNK)
+    check([size for _, size in plan] == [N_1M] * 4, f"4M plan {plan}")
+    batches, enc = _read_path(kernels, lambda: [
+        row_kernels.to_rows_fixed_batch(table, layout, start, size)
+        for start, size in plan])
+    check(enc["to_rows_cols"] == 4 and sum(enc.values()) == 4,
+          f"to_rows_fixed_batch 4M launches {enc}")
+    for (start, size), rows in zip(plan, batches):
+        k1 = kernels.grouped_encode(gc.planes, gc.vmask, layout, start, size)
+        check(torch.equal(rows, k1), f"K10 batch at {start} != K1's rows")
+        del k1
+        _hold_row_cols(table, layout, start, size, errs,
+                       f"4M batch at {start}", rows=rows)
+    emit(phase="row_kernels_4m", rows=N_4M, batch_rows=[s for _, s in plan],
+         launches={k: v for k, v in enc.items() if v}, equal_k1=True,
+         equal_plain=True,
+         roundtrip_bit_exact=True)
+    return enc
+
+
+def phase_xla_rows_1m(table, dtypes, blob, timing):
+    """convert_to_rows / convert_from_rows with impl="xla" at 1M rows of
+    the 212-column schema: one batch byte-equal to the default route's
+    (K1), the round trip bit-exact, no kernel launched; both calls timed
+    beside K10's and K11's."""
+    from spark_rapids_jni_tpu_torch.ops import (
+        convert_from_rows, convert_to_rows, kernels,
+    )
+    from spark_rapids_jni_tpu_torch.table import assert_tables_equivalent
+    batches, enc = _read_path(
+        kernels, lambda: convert_to_rows(table, impl="xla"))
+    check(len(batches) == 1 and torch.equal(batches[0].data, blob),
+          "impl=xla rows != the default route's (K1)")
+    decoded, dec = _read_path(kernels, lambda: convert_from_rows(
+        batches[0], dtypes, impl="xla"))
+    check(sum(enc.values()) == 0 and sum(dec.values()) == 0,
+          f"impl=xla launched kernels: {enc} {dec}")
+    assert_tables_equivalent(table, decoded, check_nulls=False)
+    del decoded
+    calls = {
+        "convert_to_rows_ms": median_ms(
+            lambda: convert_to_rows(table, impl="xla"), runs=10),
+        "convert_from_rows_ms": median_ms(
+            lambda: convert_from_rows(batches[0], dtypes, impl="xla"),
+            runs=10),
+        "to_rows_cols_ms": timing["to_rows_cols"]["ms"],
+        "from_rows_cols_ms": timing["from_rows_cols"]["ms"]}
+    timing["xla_rows_1m"] = calls
+    emit(phase="xla_rows_1m", rows=N_1M, batches=len(batches),
+         encode_launches=sum(enc.values()),
+         decode_launches=sum(dec.values()), equal_k1=True,
+         roundtrip_bit_exact=True, **calls)
+
+
+# DECIMAL(38) values every decimal128 column of the decimal phase starts
+# with: zero, one, minus one, the bounds and a 20-digit value
+DEC_EDGES = [0, 1, -1, 10 ** 38 - 1, -(10 ** 38 - 1), 12345678901234567890]
+DEC_SCALES = (0, 2, 10, 38)
+
+
+def _decimal_table(n: int, seed: int):
+    """The decimal phase's table: 56 columns of the cycle_dtypes schema,
+    then 8 decimal128 columns at scales 0, 2, 10 and 38, each of random
+    magnitudes below 2^126 (inside DECIMAL(38)) of either sign, its first
+    rows DEC_EDGES; 25% nulls in every column."""
+    from spark_rapids_jni_tpu_torch import (
+        BOOL8, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64, decimal128,
+    )
+    from spark_rapids_jni_tpu_torch.ops.decimal import decimal128_from_ints
+    from spark_rapids_jni_tpu_torch.table import Column, Table, pack_bools
+    from spark_rapids_jni_tpu_torch.utils import cycle_dtypes, random_table
+    base = random_table(cycle_dtypes([INT64, FLOAT64, INT32, FLOAT32, INT16,
+                                      INT8, BOOL8], 56), n, seed=seed,
+                        null_probability=0.25)
+    gen = torch.Generator(device=CARD)
+    gen.manual_seed(seed + 1)
+    edges = decimal128_from_ints(DEC_EDGES, 0, device=CARD).data
+    cols = list(base.columns)
+    for k in range(8):
+        limbs = torch.randint(0, 1 << 32, (n, 4), dtype=torch.int64,
+                              device=CARD, generator=gen)
+        limbs[:, 3] &= (1 << 30) - 1
+        neg = torch.rand(n, device=CARD, generator=gen) < 0.5
+        # two's complement of the negative rows: invert, add one, carry
+        flipped = limbs ^ 0xFFFFFFFF
+        carry = torch.ones(n, dtype=torch.int64, device=CARD)
+        for j in range(4):
+            s = flipped[:, j] + carry
+            flipped[:, j], carry = s & 0xFFFFFFFF, s >> 32
+        limbs = torch.where(neg[:, None], flipped, limbs)
+        data = (limbs - (limbs >= 1 << 31) * (1 << 32)).to(torch.int32)
+        data[:len(DEC_EDGES)] = edges
+        valid = torch.rand(n, device=CARD, generator=gen) >= 0.25
+        cols.append(Column(decimal128(DEC_SCALES[k % 4]), data.contiguous(),
+                           pack_bools(valid)))
+    return Table(tuple(cols))
+
+
+def phase_decimal128_rows_1m(errs):
+    """1M rows of 56 cycle_dtypes columns and 8 decimal128 columns through
+    every fixed-width engine: the default route (K1, K2), impl="pallas"
+    (K4, K5), impl="xla", the gather oracle pair and row_kernels (K10,
+    K11).  Every blob byte-equal, every round trip exact, K10 and K11
+    against their plain versions."""
+    from spark_rapids_jni_tpu_torch.ops import (
+        compute_row_layout, convert_from_rows,
+        convert_from_rows_fixed_width_optimized, convert_to_rows,
+        convert_to_rows_fixed_width_optimized, kernels, row_kernels,
+    )
+    from spark_rapids_jni_tpu_torch.ops.decimal import decimal128_to_ints
+    from spark_rapids_jni_tpu_torch.table import (
+        Table, assert_tables_equivalent, slice_table,
+    )
+    reset_peak()
+    table = _decimal_table(N_1M, seed=8)
+    layout = compute_row_layout(table.dtypes)
+    counts = dict.fromkeys(kernels.launches, 0)
+
+    def run(name, encode, decode):
+        rows, enc = _read_path(kernels, encode)
+        back, dec = _read_path(kernels, lambda: decode(rows))
+        assert_tables_equivalent(table, back, check_nulls=False)
+        for k in counts:
+            counts[k] += enc[k] + dec[k]
+        return rows, {"encode": {k: v for k, v in enc.items() if v},
+                      "decode": {k: v for k, v in dec.items() if v}}
+
+    engines, launches = {}, {}
+    for impl in ("mxu", "pallas", "xla"):
+        rows, launches[impl] = run(
+            impl, lambda: convert_to_rows(table, impl=impl),
+            lambda r: convert_from_rows(r[0], table.dtypes, impl=impl))
+        check(len(rows) == 1, f"decimal {impl} batches {len(rows)}")
+        engines[impl] = rows[0].data
+    rows, launches["oracle"] = run(
+        "oracle", lambda: convert_to_rows_fixed_width_optimized(table),
+        lambda r: convert_from_rows_fixed_width_optimized(r[0],
+                                                          table.dtypes))
+    engines["oracle"] = rows[0].data
+    rows, launches["row_kernels"] = run(
+        "row_kernels",
+        lambda: row_kernels.to_rows_fixed(table, layout, bucket=None),
+        lambda r: Table(row_kernels.from_rows_fixed(r, layout, bucket=None)))
+    engines["row_kernels"] = rows
+    for name, blob in engines.items():
+        check(torch.equal(blob, engines["mxu"]),
+              f"decimal128 blob of {name} != the default route's")
+    want = {"mxu": ("grouped_encode", "decode_planes"),
+            "pallas": ("planes_to_rows", "rows_to_planes"),
+            "xla": (), "oracle": (),
+            "row_kernels": ("to_rows_cols", "from_rows_cols")}
+    for name, pair in want.items():
+        got = launches[name]
+        check(got["encode"] == ({pair[0]: 1} if pair else {})
+              and got["decode"] == ({pair[1]: 1} if pair else {}),
+              f"decimal128 {name} launches {got}")
+    _hold_row_cols(table, layout, 0, N_1M, errs, "decimal128 1M",
+                   rows=engines["mxu"])
+    _hold_row_cols(table, layout, 3, N_1M - 3, errs, "decimal128 at 3")
+    # the decoded decimal columns' first rows are the edges, where valid
+    for col in Table(row_kernels.from_rows_fixed(
+            engines["mxu"], layout, bucket=None)).columns[56:]:
+        head = decimal128_to_ints(slice_table(Table((col,)), 0,
+                                              len(DEC_EDGES)).columns[0])
+        check(all(v is None or v == e for v, e in zip(head, DEC_EDGES)),
+              f"decimal128 edge values {head}")
+    emit(phase="decimal128_rows_1m", rows=N_1M, columns=len(table.columns),
+         row_size=layout.fixed_row_size, scales=list(DEC_SCALES),
+         edge_values=[str(v) for v in DEC_EDGES], launches=launches,
+         blobs_equal=sorted(engines), roundtrip_bit_exact=True,
+         equal_plain=True, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return counts
+
+
+def phase_row_kernels_edges(dtypes, errs):
+    """K10 and K11 at 1, 31, 33 and 1000 rows; one INT8 column, the
+    all-fixed schema with decimal128, and 910 INT8 columns at the 1 KB row
+    limit; columns without masks, all valid, all null and 25% null; K10 at
+    an odd start and at one that is not a multiple of 8 (to_rows_fixed_
+    batch); then K10 and K11 over 10.24M rows of the 212-column schema,
+    10.3 GB of rows, compared in slices."""
+    from spark_rapids_jni_tpu_torch import (
+        BOOL8, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64, UINT8, UINT16,
+        UINT32, UINT64, decimal32, decimal64, decimal128,
+    )
+    from spark_rapids_jni_tpu_torch.ops import (
+        compute_row_layout, kernels, row_kernels,
+    )
+    from spark_rapids_jni_tpu_torch.table import bits_view
+    from spark_rapids_jni_tpu_torch.utils import random_table
+    schemas = {
+        "one_int8": [INT8], "one_decimal128": [decimal128(38)],
+        "all_fixed_decimal": [INT64, FLOAT64, UINT64, INT32, UINT32,
+                              FLOAT32, INT16, UINT16, INT8, UINT8, BOOL8,
+                              decimal32(2), decimal64(-1), decimal128(10)],
+        "int8_910": [INT8] * 910}
+    cases = 0
+    for name, sch in schemas.items():
+        layout = compute_row_layout(sch)
+        for n in (1, 31, 33, 1000):
+            for nulls in (None, 0.0, 1.0, 0.25):
+                t = random_table(sch, n, seed=n, null_probability=nulls)
+                for start in sorted({0, min(3, n - 1), min(13, n - 1)}):
+                    rows = row_kernels.to_rows_fixed_batch(t, layout, start,
+                                                           n - start)
+                    _hold_row_cols(t, layout, start, n - start, errs,
+                                   f"{name} n={n} nulls={nulls} "
+                                   f"start={start}", rows=rows)
+                    cases += 1
+    check(compute_row_layout(schemas["int8_910"]).fixed_row_size == 1024,
+          "910 INT8 columns are not a 1 KB row")
+    # 64-bit offsets: the rows pass 2^31 bytes
+    reset_peak()
+    layout = compute_row_layout(dtypes)
+    t = random_table(dtypes, N_WIDE, seed=12, null_probability=0.25)
+    rows = kernels.to_rows_cols(t, layout, 0, N_WIDE)
+    check(rows.numel() > 1 << 31, "the wide rows do not pass 2^31 bytes")
+    datas, vmask = kernels.from_rows_cols(rows, layout)
+    for s in range(0, N_WIDE, N_1M):
+        size = min(N_1M, N_WIDE - s)
+        err = max_abs_err(rows[s:s + size], kernels.to_rows_cols_plain(
+            t, layout, s, size))
+        errs["to_rows_cols"] = max(errs["to_rows_cols"], err)
+        check(err == 0, f"wide to_rows_cols kernel != plain at {s}")
+        pdatas, pvmask = kernels.from_rows_cols_plain(rows[s:s + size],
+                                                      layout)
+        err = max([max_abs_err(vmask[:, s // 8:s // 8 + pvmask.shape[1]],
+                               pvmask)]
+                  + [max_abs_err(bits_view(d[s:s + size]), bits_view(p))
+                     for d, p in zip(datas, pdatas)])
+        errs["from_rows_cols"] = max(errs["from_rows_cols"], err)
+        check(err == 0, f"wide from_rows_cols kernel != plain at {s}")
+        del pdatas, pvmask
+    check(all(max_abs_err(bits_view(d), bits_view(c.data)) == 0
+              for d, c in zip(datas, t.columns))
+          and torch.equal(vmask, torch.stack([c.validity
+                                              for c in t.columns])),
+          "wide K11 of K10's rows != the table")
+    emit(phase="row_kernels_edges", cases=cases, wide_rows=N_WIDE,
+         wide_blob_bytes=rows.numel(), equal_plain=True,
+         roundtrip_bit_exact=True,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
 
 
 def _serve_requests(rng, count, lo, hi):
@@ -1702,6 +2141,8 @@ def main():
         "convert_from_rows_ms": median_ms(
             lambda: convert_from_rows(batches[0], dtypes), runs=10)}
     add_launches(phase_pallas_rows_1m(table, dtypes, blob, errs, timing))
+    add_launches(phase_row_kernels_1m(table, dtypes, blob, errs, timing))
+    phase_xla_rows_1m(table, dtypes, blob, timing)
     del table, batches, blob, gc
 
     # -- 4M rows: two batches under the grouped policy, each kernel against
@@ -1741,6 +2182,7 @@ def main():
          batch_bytes=[b.data.numel() for b in batches], equal_plain=True,
          roundtrip_bit_exact=True)
     add_launches(phase_pallas_rows_4m(table, dtypes, gc, errs))
+    add_launches(phase_row_kernels_4m(table, dtypes, gc, errs))
     del gc
 
     # -- the hash and bloom paths
@@ -1782,11 +2224,18 @@ def main():
         check(path_launches[name] > 0,
               f"{name} never launched on its paths: {path_launches}")
 
+    # -- decimal128 through every fixed-width engine
+    add_launches(phase_decimal128_rows_1m(errs))
+    torch.cuda.empty_cache()
+    for name in ("to_rows_cols", "from_rows_cols"):
+        check(path_launches[name] > 0,
+              f"{name} never launched on its paths: {path_launches}")
+
     # -- 64-bit offsets: random planes of N_WIDE rows, so that the index of
     # the last data plane's words (read by the encode) and of the last
     # decoded plane's words (written by the decode) pass 2^31 elements, and
     # the blob passes 2^31 bytes; each kernel against its plain version
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     gen = torch.Generator(device=CARD)
     gen.manual_seed(2)
     planes = torch.randint(0, 256, (wd, 4 * N_WIDE), dtype=torch.uint8,
@@ -1871,11 +2320,14 @@ def main():
     emit(phase="edges", cases=cases, max_abs_err=errs)
     phase_hash_edges(errs)
     phase_pack_edges(errs)
+    torch.cuda.empty_cache()
+    phase_row_kernels_edges(dtypes, errs)
 
     for name, _ in KERNELS:
         timing[name]["launches"] = path_launches[name]
+    reset_peak()
     emit(phase="timing", runs=TIMED_RUNS, **timing, **end_to_end,
-         seconds=time.perf_counter() - t_start)
+         peak_memory_bytes=_PEAKS[0], seconds=time.perf_counter() - t_start)
     kernel_lines = []
     for name, replaces in KERNELS:
         tm = timing[name]

@@ -4,11 +4,15 @@ It runs on one NVIDIA Hopper card (sm_90a).  The JAX package beside it is
 the reference; this package imports neither JAX nor that package.
 
 - ``table``: ``Column``/``Table`` containers as torch tensors, fixed-width
-  and dense-padded string columns.
+  (decimal128 included) and dense-padded string columns; ``ops.decimal``
+  builds decimal128 columns from Python ints and reads them back.
 - ``ops.row_conversion``: JCUDF row-format <-> column conversion, the
   flagship op (reference ``src/main/cpp/src/row_conversion.cu``), for
   fixed-width and dense-padded string tables, and ``compact_rows_host``;
-  ``impl="pallas"`` takes the word-plane engine of ``ops.plane_rows``.
+  ``impl="pallas"`` takes the word-plane engine of ``ops.plane_rows``,
+  ``impl="xla"`` the generic torch engine; ``ops.row_kernels`` is the
+  per-column-block engine (``to_rows_fixed``/``from_rows_fixed``, with
+  shape-bucket padding).
 - ``ops.row_mxu``: word plans, the plane-major table backing and the
   two-stage encode of tables too large to pack whole.
 - ``ops.hashing``: Spark's murmur3 and xxhash64 over columns, and hash
@@ -25,7 +29,8 @@ the reference; this package imports neither JAX nor that package.
 - ``serve``: the multi-tenant serving runtime (a continuous-batching
   ``Scheduler`` and per-tenant ``Client``s) with the ``rows`` and
   ``unrows`` ops.
-- ``runtime``: the shape-bucket grid, coalesced host <-> device staging
+- ``runtime``: the shape-bucket grid and its pad and unpad helpers,
+  coalesced host <-> device staging
   and the failure taxonomy the serving runtime uses.
 - ``utils.datagen``: seeded random tables (fixed-width and padded string
   columns), made on the device.
@@ -38,5 +43,5 @@ Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 from spark_rapids_jni_tpu_torch.table import (  # noqa: F401
     ALL_FIXED_WIDTH, BOOL8, DATE32, FLOAT32, FLOAT64, INT8, INT16, INT32,
     INT64, STRING, TIMESTAMP64, UINT8, UINT16, UINT32, UINT64, Column, DType,
-    Table, decimal32, decimal64,
+    Table, decimal32, decimal64, decimal128,
 )

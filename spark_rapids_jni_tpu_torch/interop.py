@@ -3,9 +3,10 @@
 Both packages compute on the same data only if it crosses bit for bit.  The
 JAX package's tables are handed over as numpy arrays, one tuple per column:
 ``(dtype name, values, packed validity or None)`` for a fixed-width column
-and ``("string", chars2d, lens, packed validity or None)`` for a
-dense-padded string column, the name being ``repr`` of the column type,
-which both packages print alike.  Its ``GroupedColumns`` cross as uint32
+(a decimal128 column's values are its uint32 ``[n, 4]`` limbs) and
+``("string", chars2d, lens, packed validity or None)`` for a dense-padded
+string column, the name being ``repr`` of the column type, which both
+packages print alike.  Its ``GroupedColumns`` cross as uint32
 planes plus packed masks, its ``RowsColumn`` batches (fixed-width or
 dense-padded) as their bytes and offsets with the padded layout's row size
 and string widths.  Nothing here imports JAX: the caller does the

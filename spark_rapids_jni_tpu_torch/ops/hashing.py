@@ -38,14 +38,20 @@ Columns = Union[Table, Sequence[Column]]
 
 
 def _columns_on(table_or_cols: Columns, device) -> tuple:
-    """The columns on the entry point's device, checked: every padded
-    string length within its width (one host read of the lengths' range,
-    as the JAX package's ``_resolve_str_window`` reads them)."""
+    """The columns on the entry point's device, checked: no decimal128
+    column, and every padded string length within its width (one host
+    read of the lengths' range, as the JAX package's
+    ``_resolve_str_window`` reads them)."""
     dev = resolve_device(device)
     cols = (table_or_cols.columns if isinstance(table_or_cols, Table)
             else tuple(table_or_cols))
     if not cols:
         raise ValueError("hashing needs at least one column")
+    if any(c.dtype.kind == "decimal128" for c in cols):
+        raise ValueError(
+            "decimal128 columns are not hashed by the port yet: the JAX "
+            "package hashes them on its XLA chain, which waits for "
+            "ROADMAP.md queue 1, item 3")
     cols = tuple(c.to(dev) for c in cols)
     for c in cols:
         if c.dtype.is_string and c.num_rows:

@@ -16,6 +16,12 @@ row-conversion kernels' wrappers and plain PyTorch versions.
   (``csrc/rows_to_planes.cu``) its ``_unpack_kernel``: the word transposes
   between a row's 32-bit word planes and its bytes, under the word-plane
   engine (:mod:`.plane_rows`).
+- :func:`to_rows_cols` (``csrc/to_rows_cols.cu``) replaces
+  ``row_kernels.py::_to_rows_kernel`` and :func:`from_rows_cols`
+  (``csrc/from_rows_cols.cu``) its ``_from_rows_kernel``: a batch of a
+  table's columns, each read in place, to JCUDF rows through a shared-memory
+  tile of whole rows, and back to columns and packed masks, under the
+  per-column-block engine (:mod:`.row_kernels`).
 - The hash and bloom-probe kernels (``csrc/murmur3.cu``,
   ``csrc/xxhash64.cu``, ``csrc/bloom_probe.cu``) build here too; their
   wrappers and plain versions are in :mod:`.hash_kernels`.  So does the
@@ -47,7 +53,7 @@ import numpy as np
 import torch
 
 from spark_rapids_jni_tpu_torch.table import (
-    Table, bits_view, pack_bools, valid_bits,
+    Table, bits_view, bytes_to_col, col_to_bytes, pack_bools, valid_bits,
 )
 from spark_rapids_jni_tpu_torch.ops import word_plan
 from spark_rapids_jni_tpu_torch.ops.row_layout import RowLayout
@@ -55,7 +61,8 @@ from spark_rapids_jni_tpu_torch.ops.row_layout import RowLayout
 # launches of each kernel since the last reset_launches()
 launches = {"grouped_encode": 0, "decode_planes": 0, "pack_planes": 0,
             "murmur3_cols": 0, "xxhash64_cols": 0, "bloom_might_contain": 0,
-            "gjo_scan": 0, "planes_to_rows": 0, "rows_to_planes": 0}
+            "gjo_scan": 0, "planes_to_rows": 0, "rows_to_planes": 0,
+            "to_rows_cols": 0, "from_rows_cols": 0}
 
 
 def reset_launches():
@@ -74,7 +81,9 @@ SOURCES = {"grouped_encode": "row_encode.cu", "decode_planes": "row_decode.cu",
            "xxhash64_cols": "xxhash64.cu",
            "bloom_might_contain": "bloom_probe.cu", "gjo_scan": "gjo_scan.cu",
            "planes_to_rows": "planes_to_rows.cu",
-           "rows_to_planes": "rows_to_planes.cu"}
+           "rows_to_planes": "rows_to_planes.cu",
+           "to_rows_cols": "to_rows_cols.cu",
+           "from_rows_cols": "from_rows_cols.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -123,6 +132,10 @@ _ENTRY = {
         _VP, _I64, _I32, _I64, _I64, _VP, _I32, _VP]),
     "rows_to_planes": ("srj_rows_to_planes", [_VP, _I64, _I32, _VP, _I32,
                                               _VP]),
+    "to_rows_cols": ("srj_to_rows_cols", [_VP, _I64, _I64, _I32, _VP, _I32,
+                                          _VP]),
+    "from_rows_cols": ("srj_from_rows_cols", [_VP, _VP, _I64, _I32, _VP,
+                                              _I64, _I32, _VP]),
 }
 
 
@@ -446,7 +459,8 @@ def pack_data_words(table: Table, layout: RowLayout, num_words: int,
     rows ``[start, start + size)`` in its first planes, zeros in the rest.
     Plain tensor copies, one per column: word-sized columns copy into whole
     planes, narrower ones into their bytes of a plane (a 64-bit column's
-    planes are its little-endian lo and hi words)."""
+    planes are its little-endian lo and hi words, a decimal128 column's its
+    four limbs)."""
     plan = word_plan._forward_plan(layout)[0]
     planes = torch.zeros((num_words, size), dtype=torch.int32,
                          device=table.device)
@@ -455,7 +469,9 @@ def pack_data_words(table: Table, layout: RowLayout, num_words: int,
         sz = layout.col_sizes[i]
         w, b = plan.col_word[i], plan.col_byte[i]
         data = bits_view(col.data)[start:start + size]
-        if sz == 8:
+        if sz == 16:        # decimal128 [size, 4] limbs: four planes
+            planes[w:w + 4] = data.T
+        elif sz == 8:
             planes[w:w + 2] = data.view(torch.int32).view(size, 2).T
         elif sz == 4:
             planes[w] = data
@@ -605,3 +621,194 @@ def rows_to_planes(rows2d: torch.Tensor) -> torch.Tensor:
         launch("rows_to_planes", rows2d.data_ptr(), n, num_words,
                out.data_ptr(), dev.index, stream_of(dev))
     return out
+
+
+# ---------------------------------------------------------------------------
+# K10: to_rows_cols, K11: from_rows_cols
+# ---------------------------------------------------------------------------
+
+# the most columns one launch takes (csrc/row_cols.cuh's kMaxRowCols)
+MAX_ROW_COLS = 1024
+# a tile's shared memory: the default budget, and the most a block can have
+DEFAULT_TILE_BYTES = 48 << 10
+MAX_TILE_BYTES = 232448
+
+
+class _RowCols(ctypes.Structure):
+    """csrc/row_cols.cuh's SrjRowCols."""
+    _fields_ = [("data", ctypes.c_void_p * MAX_ROW_COLS),
+                ("valid", ctypes.c_void_p * MAX_ROW_COLS),
+                ("start", ctypes.c_uint16 * MAX_ROW_COLS),
+                ("size", ctypes.c_uint8 * MAX_ROW_COLS),
+                ("ncols", ctypes.c_int32), ("row_size", ctypes.c_int32),
+                ("validity_offset", ctypes.c_int32)]
+
+
+def tile_rows_for(layout: RowLayout, tile_rows: int = 0) -> int:
+    """Rows of K10's and K11's shared tile: ``tile_rows`` if positive (a
+    multiple of 32 whose tile fits a block's shared memory), else as many
+    as fit :data:`DEFAULT_TILE_BYTES`, rounded down to 32, from 32 to
+    256."""
+    # a row of the tile is one word more than the row, an odd number of
+    # words (row_cols.cuh)
+    pitch = layout.fixed_row_size + 4
+    if tile_rows <= 0:
+        return max(32, min(256, DEFAULT_TILE_BYTES // pitch) // 32 * 32)
+    _check(tile_rows % 32 == 0 and tile_rows * pitch <= MAX_TILE_BYTES,
+           f"tile_rows {tile_rows} is not a multiple of 32 whose tile of "
+           f"{pitch}-byte rows fits {MAX_TILE_BYTES} bytes")
+    return tile_rows
+
+
+def _check_row_layout(layout: RowLayout):
+    _check(0 < layout.num_columns <= MAX_ROW_COLS and not layout.has_strings,
+           f"the row kernels take 1 to {MAX_ROW_COLS} fixed-width columns, "
+           f"got {list(layout.dtypes)}")
+
+
+def _check_to_rows(table: Table, layout: RowLayout, start: int, size: int):
+    _check_row_layout(layout)
+    _check(tuple(table.dtypes) == layout.dtypes,
+           "the table's types are not the layout's")
+    n, dev = table.num_rows, table.device
+    nb = (n + 7) // 8
+    # one pass over the columns, the message built only on failure: this
+    # runs before every launch, and its host time shows in the launch's
+    for c in table.columns:
+        d, v = c.data, c.validity
+        if not (d.shape[0] == n and d.device == dev and d.is_contiguous()
+                and d.data_ptr() % min(c.dtype.itemsize, 16) == 0
+                and (v is None or (v.dtype == torch.uint8 and v.dim() == 1
+                                   and v.shape[0] >= nb and v.device == dev
+                                   and v.is_contiguous()))):
+            raise ValueError(
+                f"columns must hold {n} rows on {dev}, their data "
+                f"contiguous and aligned to its value size, their validity "
+                f"contiguous uint8 [>= {nb}]; got {c.dtype} "
+                f"{tuple(d.shape)} on {d.device}, validity "
+                f"{None if v is None else (v.dtype, tuple(v.shape))}")
+    _check(0 <= start and 0 <= size and start + size <= n,
+           f"batch [{start}, {start + size}) outside {n} rows")
+
+
+def _row_cols(layout: RowLayout, datas, valids=()) -> _RowCols:
+    cols = _RowCols()
+    nc = layout.num_columns
+    cols.data[:nc] = [d.data_ptr() for d in datas]
+    cols.valid[:len(valids)] = [None if v is None else v.data_ptr()
+                                for v in valids]
+    cols.start[:nc] = layout.col_starts
+    cols.size[:nc] = layout.col_sizes
+    cols.ncols, cols.row_size = nc, layout.fixed_row_size
+    cols.validity_offset = layout.validity_offset
+    return cols
+
+
+def to_rows_cols_plain(table: Table, layout: RowLayout, start: int,
+                       size: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`to_rows_cols`, the function of the
+    JAX package's ``_to_rows_kernel``: zeroed rows, each column's bytes
+    through a byte view into its slot, then the validity bytes."""
+    _check_to_rows(table, layout, start, size)
+    out = torch.zeros((size, layout.fixed_row_size), dtype=torch.uint8,
+                      device=table.device)
+    for c, s, sz in zip(table.columns, layout.col_starts, layout.col_sizes):
+        out[:, s:s + sz] = col_to_bytes(c.data[start:start + size])
+    vo, vb = layout.validity_offset, layout.validity_bytes
+    bits = torch.nn.functional.pad(valid_bits(table.columns, start, size),
+                                   (0, 0, 0, 8 * vb - layout.num_columns))
+    shifts = torch.arange(8, dtype=torch.uint8, device=table.device)
+    out[:, vo:vo + vb] = (bits.view(vb, 8, size) << shifts[:, None]).sum(
+        1, dtype=torch.uint8).T
+    return out
+
+
+def to_rows_cols(table: Table, layout: RowLayout, start: int, size: int,
+                 tile_rows: int = 0) -> torch.Tensor:
+    """K10: JCUDF rows uint8 ``[size, row_size]`` of table rows ``[start,
+    start + size)``, each column read in place at ``start`` (any row), a
+    column without a mask valid throughout.  ``tile_rows``: rows of the
+    shared tile, 0 for :func:`tile_rows_for`'s."""
+    _check_to_rows(table, layout, start, size)
+    dev = table.device
+    if dev.type == "cpu":
+        return to_rows_cols_plain(table, layout, start, size)
+    _check(dev.type == "cuda", f"no kernel for device {dev}")
+    tile = tile_rows_for(layout, tile_rows)
+    out = torch.empty((size, layout.fixed_row_size), dtype=torch.uint8,
+                      device=dev)
+    if size:
+        cols = _row_cols(layout, [c.data for c in table.columns],
+                         [c.validity for c in table.columns])
+        launch("to_rows_cols", ctypes.addressof(cols), start, size, tile,
+               out.data_ptr(), dev.index, stream_of(dev))
+    return out
+
+
+def _check_from_rows(rows2d: torch.Tensor, layout: RowLayout):
+    _check_row_layout(layout)
+    rs = layout.fixed_row_size
+    _check(rows2d.dtype == torch.uint8 and rows2d.dim() == 2
+           and rows2d.shape[1] == rs,
+           f"rows must be uint8 [n, {rs}], got {rows2d.dtype} "
+           f"{tuple(rows2d.shape)}")
+    _check(rows2d.is_contiguous() and rows2d.data_ptr() % 8 == 0,
+           "rows must be contiguous and 8-byte aligned")
+
+
+def from_rows_cols_plain(rows2d: torch.Tensor, layout: RowLayout):
+    """Plain PyTorch version of :func:`from_rows_cols`, the function of the
+    JAX package's ``_from_rows_kernel`` and its wrapper: each column's slot
+    bytes as its values, the validity bytes' bits packed per column."""
+    _check_from_rows(rows2d, layout)
+    datas = [bytes_to_col(rows2d[:, s:s + sz], dt) for dt, s, sz in
+             zip(layout.dtypes, layout.col_starts, layout.col_sizes)]
+    n = rows2d.shape[0]
+    vo, vb = layout.validity_offset, layout.validity_bytes
+    shifts = torch.arange(8, dtype=torch.uint8, device=rows2d.device)
+    bits = (rows2d[:, vo:vo + vb].unsqueeze(-1) >> shifts) & 1
+    return datas, pack_bools(bits.reshape(n, 8 * vb)[:, :layout.num_columns]
+                             .T)
+
+
+def _column_buffers(layout: RowLayout, n: int, dev) -> list:
+    """Every column's ``n`` values, as views of one allocation (one
+    allocation and one split, where a tensor a column costs milliseconds
+    of host time at 212 columns).  The columns lie widest first, so each
+    view starts aligned to its value size; they share the allocation, as
+    the columns of a decoded backing share its planes."""
+    order = sorted(range(layout.num_columns),
+                   key=lambda i: -layout.col_sizes[i])
+    sizes = [n * layout.col_sizes[i] for i in order]
+    parts = torch.split(torch.empty(sum(sizes), dtype=torch.uint8,
+                                    device=dev), sizes)
+    datas = [None] * layout.num_columns
+    for i, part in zip(order, parts):
+        dt = layout.dtypes[i]
+        datas[i] = (part.view(torch.int32).view(n, 4) if dt.itemsize == 16
+                    else part.view(dt.torch_dtype))
+    return datas
+
+
+def from_rows_cols(rows2d: torch.Tensor, layout: RowLayout,
+                   tile_rows: int = 0):
+    """K11: the columns of JCUDF rows uint8 ``[n, row_size]``: each
+    column's values (``[n]`` of its type, int32 ``[n, 4]`` for decimal128)
+    and uint8 ``[ncols, ceil(n/8)]`` packed masks whose bits past ``n`` are
+    zero.  ``tile_rows`` as for :func:`to_rows_cols`."""
+    _check_from_rows(rows2d, layout)
+    dev = rows2d.device
+    if dev.type == "cpu":
+        return from_rows_cols_plain(rows2d, layout)
+    _check(dev.type == "cuda", f"no kernel for device {dev}")
+    tile = tile_rows_for(layout, tile_rows)
+    n = rows2d.shape[0]
+    datas = _column_buffers(layout, n, dev)
+    vmask = torch.empty((layout.num_columns, (n + 7) // 8),
+                        dtype=torch.uint8, device=dev)
+    if n:
+        cols = _row_cols(layout, datas)
+        launch("from_rows_cols", ctypes.addressof(cols), rows2d.data_ptr(),
+               n, tile, vmask.data_ptr(), vmask.shape[1], dev.index,
+               stream_of(dev))
+    return datas, vmask

@@ -58,7 +58,8 @@ def _word_planes_from_table(table: Table, layout: RowLayout, start: int = 0,
     """JCUDF word planes int32 ``[W, size]`` of table rows ``[start, start +
     size)`` (``pallas_kernels._word_planes_from_table``): each column's
     bytes copied into its word (a 64-bit column's lo and hi words into two
-    planes, narrower columns into their bytes of one), the validity bytes
+    planes, a decimal128 column's limbs into four, narrower columns into
+    their bytes of one), the validity bytes
     at the validity offset, zeros elsewhere."""
     _check_fixed(layout)
     if size is None:
@@ -71,7 +72,9 @@ def _word_planes_from_table(table: Table, layout: RowLayout, start: int = 0,
                           layout.col_sizes):
         data = bits_view(col.data)[start:start + size]
         w = s // 4
-        if sz == 8:
+        if sz == 16:        # decimal128 [size, 4] limbs
+            planes[w:w + 4] = data.T
+        elif sz == 8:
             planes[w:w + 2] = data.view(torch.int32).view(size, 2).T
         elif sz == 4:
             planes[w] = data
@@ -92,14 +95,17 @@ def _cols_from_word_planes(x: torch.Tensor, layout: RowLayout
     """Every column's data and packed validity mask from word planes int32
     ``[W, n]`` (``pallas_kernels._cols_from_word_planes``): a 4-byte column
     is a view of its plane, a 64-bit one its lo/hi plane pair transposed
-    into native values, a narrower one a copy of its bytes."""
+    into native values, a decimal128 one its four planes transposed into
+    ``[n, 4]`` limbs, a narrower one a copy of its bytes."""
     _check_fixed(layout)
     n = x.shape[1]
     xb = x.view(torch.uint8).view(x.shape[0], n, 4)
     datas = []
     for dt, s, sz in zip(layout.dtypes, layout.col_starts, layout.col_sizes):
         w = s // 4
-        if sz == 8:
+        if sz == 16:
+            data = x[w:w + 4].T.contiguous()
+        elif sz == 8:
             data = torch.stack((x[w], x[w + 1]), 1).view(torch.int64).view(n)
         elif sz == 4:
             data = x[w]

@@ -25,6 +25,17 @@ The PyTorch counterpart of ``spark_rapids_jni_tpu.ops.row_conversion``
   :func:`plan_equal_batches` of at most ``min(size_limit, 1 GiB)``; the
   decode runs one unpack kernel launch (``kernels.rows_to_planes``) and cuts
   the columns out of the planes.
+- ``impl="xla"`` (or ``use_pallas=False``) takes the generic engine, the
+  JAX package's XLA lowering, here the plain PyTorch versions of K10 and
+  K11 and no kernel: each batch of the same plan is zeroed rows, each
+  column's bytes stored in its slot and the validity bytes
+  (``kernels.to_rows_cols_plain``); the decode cuts each column's bytes and
+  its validity bits out of the rows (``kernels.from_rows_cols_plain``).
+  ``ops.row_kernels`` is this engine's kernel form (K10, K11), as
+  ``row_kernels`` is in the JAX package.
+- Every fixed-width engine carries decimal128 columns (16-byte slots,
+  aligned to 16), except the two-stage encode above the cap, whose pack
+  kernel takes columns of 1, 2, 4 and 8 bytes only.
 - Dense-padded strings: every row has the same size, the fixed section
   (each string slot's uint32 pair holding its char slot's start and the
   string's length) then one ``W``-byte char slot per string column, slack
@@ -48,7 +59,8 @@ import numpy as np
 import torch
 
 from spark_rapids_jni_tpu_torch.table import (
-    BITS_DTYPES, Column, DType, Table, bits_view, pack_bools, resolve_device,
+    BITS_DTYPES, Column, DType, Table, bits_view, bytes_to_col, col_to_bytes,
+    pack_bools, resolve_device,
 )
 from spark_rapids_jni_tpu_torch.ops import kernels, plane_rows, row_mxu
 from spark_rapids_jni_tpu_torch.ops.row_layout import (
@@ -220,18 +232,14 @@ def _grouped_layout(dtypes: Sequence[DType]) -> RowLayout:
 def _resolve_impl(impl: Optional[str], use_pallas: Optional[bool]) -> str:
     """The fixed-width engine for explicit arguments, as the JAX package's
     ``_resolve_impl`` picks it: ``"mxu"`` (the default: the plane-major
-    backing's kernels) or ``"pallas"`` (the word-plane engine).  The port
-    has no generic engine, so ``"xla"`` and ``use_pallas=False`` raise."""
+    backing's kernels), ``"pallas"`` (``use_pallas=True``: the word-plane
+    engine) or ``"xla"`` (``use_pallas=False``: the generic torch
+    engine).  Its ``SRJ_TPU_PALLAS`` switch is not ported."""
     if impl is None:
         impl = {None: "mxu", True: "pallas", False: "xla"}[use_pallas]
     if impl not in ("mxu", "xla", "pallas"):
         raise ValueError(f"unknown impl {impl!r}; "
                          "expected 'mxu', 'xla' or 'pallas'")
-    if impl == "xla":
-        raise NotImplementedError(
-            "the port has no generic (XLA) row engine: it waits for the "
-            "row-conversion glue item (ROADMAP.md queue 1, item 5); use "
-            "impl='mxu' or impl='pallas'")
     return impl
 
 
@@ -244,36 +252,38 @@ def convert_to_rows(table: Table, *, size_limit: int = MAX_BATCH_BYTES,
     card).  A table with string columns takes the dense-padded encode; a
     fixed-width one one pack and one encode kernel per batch, or above
     :data:`_FUSED_PREP_CAP` the two-stage encode batch by batch, or with
-    ``impl="pallas"`` the word-plane engine (see the module docstring)."""
+    ``impl="pallas"`` the word-plane engine, or with ``impl="xla"`` the
+    generic engine (see the module docstring)."""
     dev = resolve_device(device)
     layout = compute_row_layout(table.dtypes)
     table = table.to(dev)
     if layout.has_strings:
         return _to_rows_variable_padded(table, layout, size_limit)
-    if _resolve_impl(impl, use_pallas) == "pallas":
-        return _to_rows_planes(table, layout, size_limit)
+    impl = _resolve_impl(impl, use_pallas)
+    if impl == "pallas":
+        return _to_rows_batched(table, layout, size_limit,
+                                plane_rows.to_rows_fixed)
+    if impl == "xla":
+        return _to_rows_batched(table, layout, size_limit,
+                                kernels.to_rows_cols_plain)
     prep_bytes = (sum(c.data.numel() * c.data.element_size()
                       for c in table.columns)
                   + layout.num_columns * table.num_rows // 8)
     if prep_bytes > _FUSED_PREP_CAP:
-        return _to_rows_two_stage(table, layout, size_limit)
+        return _to_rows_batched(table, layout, size_limit,
+                                row_mxu.to_rows_fixed)
     return _encode_batches(row_mxu.table_to_grouped(table, layout),
                            size_limit)
 
 
-def _to_rows_two_stage(table: Table, layout: RowLayout,
-                       size_limit: int) -> List[RowsColumn]:
+def _to_rows_batched(table: Table, layout: RowLayout, size_limit: int,
+                     encode) -> List[RowsColumn]:
+    """One ``encode(table, layout, start, size)`` a batch, in the batches
+    of :func:`plan_equal_batches` of at most ``min(size_limit, 1 GiB)``:
+    the JAX package's policy for its batch-sliced engines (the two-stage
+    encode, ``impl="pallas"`` and ``impl="xla"``)."""
     rs = layout.fixed_row_size
-    return [RowsColumn(row_mxu.to_rows_fixed(table, layout, start, size),
-                       _offsets(size, rs, table.device))
-            for start, size in plan_equal_batches(
-                table.num_rows, rs, min(size_limit, _XLA_CHUNK))]
-
-
-def _to_rows_planes(table: Table, layout: RowLayout,
-                    size_limit: int) -> List[RowsColumn]:
-    rs = layout.fixed_row_size
-    return [RowsColumn(plane_rows.to_rows_fixed(table, layout, start, size),
+    return [RowsColumn(encode(table, layout, start, size),
                        _offsets(size, rs, table.device))
             for start, size in plan_equal_batches(
                 table.num_rows, rs, min(size_limit, _XLA_CHUNK))]
@@ -318,6 +328,7 @@ def convert_from_rows(rows: RowsColumn, dtypes: Sequence[DType], *,
     kernel, then one column per field; a dense-padded string batch's char
     slots are sliced out after it.  ``impl="pallas"`` (or
     ``use_pallas=True``) decodes a fixed-width batch through the word-plane
+    engine, ``impl="xla"`` (or ``use_pallas=False``) through the generic
     engine."""
     dev = resolve_device(device)
     layout = compute_row_layout(dtypes)
@@ -329,9 +340,10 @@ def convert_from_rows(rows: RowsColumn, dtypes: Sequence[DType], *,
                 "dense-padded batches")
         return _from_rows_variable_padded(rows, layout, dev)
     rows2d = _rows2d_on(rows, layout.fixed_row_size, dev)
-    if _resolve_impl(impl, use_pallas) == "pallas":
-        return Table(tuple(plane_rows.from_rows_fixed(rows2d, layout)))
-    return Table(tuple(row_mxu.from_rows_fixed(rows2d, layout)))
+    decode = {"mxu": row_mxu.from_rows_fixed,
+              "pallas": plane_rows.from_rows_fixed,
+              "xla": _from_rows_plain}[_resolve_impl(impl, use_pallas)]
+    return Table(tuple(decode(rows2d, layout)))
 
 
 def convert_from_rows_grouped(rows: RowsColumn, dtypes: Sequence[DType], *,
@@ -343,6 +355,20 @@ def convert_from_rows_grouped(rows: RowsColumn, dtypes: Sequence[DType], *,
     layout = _grouped_layout(dtypes)
     return row_mxu.from_rows_fixed_grouped(
         _rows2d_on(rows, layout.fixed_row_size, dev), layout)
+
+
+# ---------------------------------------------------------------------------
+# The generic engine (impl="xla")
+# ---------------------------------------------------------------------------
+
+def _from_rows_plain(rows2d: torch.Tensor,
+                     layout: RowLayout) -> List[Column]:
+    """The generic engine's decode: the columns of
+    ``kernels.from_rows_cols_plain`` (the JAX package's
+    ``_disassemble_fixed_rows``)."""
+    datas, vmask = kernels.from_rows_cols_plain(rows2d, layout)
+    return [Column(dt, d, m) for dt, d, m in zip(layout.dtypes, datas,
+                                                 vmask)]
 
 
 # ---------------------------------------------------------------------------
@@ -386,6 +412,9 @@ def _assemble_fixed_variable(out: torch.Tensor, table: Table,
             pair[:, 0] = slot_starts[si]
             pair[:, 1] = col.str_lens()[start:start + size]
             si += 1
+        elif sz == 16:      # decimal128 [n, 4] limbs
+            out[:, s:s + 16].view(torch.int32).copy_(
+                col.data[start:start + size])
         else:
             out[:, s:s + sz].view(BITS_DTYPES[sz])[:, 0] = \
                 bits_view(col.data)[start:start + size]
@@ -588,11 +617,8 @@ def _validity_row_bytes(table: Table, layout: RowLayout, start: int = 0,
 
 
 def _oracle_to_rows(table: Table, layout: RowLayout) -> torch.Tensor:
-    n = table.num_rows
     dev = table.device
-    packed = torch.cat([bits_view(c.data).view(torch.uint8).view(n, sz)
-                        for c, sz in zip(table.columns, layout.col_sizes)],
-                       dim=1)
+    packed = torch.cat([col_to_bytes(c.data) for c in table.columns], dim=1)
     src, vsrc = (torch.from_numpy(m).to(dev)
                  for m in _oracle_gather_maps(layout))
     data_part = packed[:, src.clamp(min=0)]
@@ -607,8 +633,7 @@ def _oracle_from_rows(rows2d: torch.Tensor, layout: RowLayout) -> Table:
     cols = []
     for i, dt in enumerate(layout.dtypes):
         s, sz = layout.col_starts[i], layout.col_sizes[i]
-        data = (rows2d[:, s:s + sz].reshape(-1)
-                .view(BITS_DTYPES[sz]).view(dt.torch_dtype))
+        data = bytes_to_col(rows2d[:, s:s + sz], dt)
         vbyte = rows2d[:, layout.validity_offset + i // 8]
         cols.append(Column(dt, data, pack_bools((vbyte >> (i % 8)) & 1)))
     return Table(tuple(cols))

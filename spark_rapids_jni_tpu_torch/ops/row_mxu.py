@@ -5,7 +5,8 @@ kept so each function's counterpart is easy to find; nothing here runs on a
 matrix unit.  A JCUDF row is a static byte permutation of the table's column
 bytes plus the validity bitmask.  The table's plane-major backing
 (:class:`GroupedColumns`) holds the columns as an ``int32 [W, n]`` word
-matrix, one "plane" row per word (64/32-bit columns word-aligned, 16-bit
+matrix, one "plane" row per word (decimal128 columns as four planes, then
+64/32-bit columns word-aligned, 16-bit
 columns two to a word, 8-bit columns four to a word), plus packed
 ``uint8 [ncols, ceil(n/8)]`` validity.  The word plans fix that layout per
 schema; they live in :mod:`.word_plan` (numpy, exactly as in the JAX
@@ -51,11 +52,13 @@ def extract_plane_column(x: torch.Tensor, plan: WordPlan, layout: RowLayout,
                          i: int) -> torch.Tensor:
     """Column ``i``'s data from word planes ``x`` (int32 ``[W, n]``): a
     plane-row view for 4-byte columns, a copy of the column's bytes
-    otherwise."""
+    otherwise (``[n, 4]`` limbs from a decimal128 column's four planes)."""
     dt = layout.dtypes[i]
     sz = layout.col_sizes[i]
     w0 = plan.col_word[i]
     n = x.shape[1]
+    if sz == 16:    # decimal128: four planes -> [n, 4] limbs
+        return x[w0:w0 + 4].T.contiguous()
     if sz == 8:
         data = x[w0:w0 + 2].T.reshape(-1).view(torch.int64)
     elif sz == 4:

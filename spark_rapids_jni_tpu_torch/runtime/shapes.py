@@ -1,13 +1,31 @@
-"""The shape-bucket grid: sizes quantized up a geometric grid, so that
-varying traffic lands on a bounded set of shapes.
+"""Shape buckets: sizes quantized up a geometric grid, so that varying
+traffic lands on a bounded set of shapes, and the helpers that pad a table
+up to its bucket and slice a result back.
 
-The PyTorch counterpart of the grid in ``spark_rapids_jni_tpu.runtime.shapes``
-(``bucket_rows`` :96, ``bucket_width`` :108, ``split_bucket``).  The port
-compiles nothing per shape, but the serve scheduler's coalescing signatures
-and slot counts and the staging blobs' lengths come from this grid, so it is
-the same grid, read from the same ``SRJ_TPU_SHAPE_BUCKETS`` variable: pow-2
-from :data:`MIN_ROWS` by default.  The pad and unpad helpers wait for a
-later slice (``ROADMAP.md`` queue 1, item 8).
+The PyTorch counterpart of ``spark_rapids_jni_tpu.runtime.shapes`` (the
+grid :81-146, the pad and unpad helpers :149-286).  The port compiles
+nothing per shape, but the serve scheduler's coalescing signatures and slot
+counts, the staging blobs' lengths and the row counts the ``bucket="auto"``
+entry points launch over (``ops.row_kernels``) come from this grid, so it
+is the same grid, read from the same ``SRJ_TPU_SHAPE_BUCKETS`` variable:
+pow-2 from :data:`MIN_ROWS` by default.
+
+- :func:`resolve` turns an entry point's ``bucket`` argument (None or
+  ``"auto"``) into a factor.  The port always runs eagerly, so ``"auto"``
+  is the variable's factor (the JAX package resolves it to None inside a
+  jit trace).  Eager code compiles nothing per shape, so in the port the
+  pad only costs time.
+- :func:`pad_table` / :func:`pad_column` pad the row axis with rows that
+  are **invalid**: the padded validity mask is the contract, and it is
+  always materialised, also for a column without a mask or a table already
+  at its bucket.  :func:`unpad_column`, :func:`unpad_array` and
+  :func:`unpad_result` slice results back to the true row count.
+
+Left out: ``note`` and the ``pad_span``/``unpad_span`` spans, which stamp
+the padding on the obs spans (``ROADMAP.md`` queue 1, item 13);
+``vmem_tile``, a TPU VMEM budget; and, until the hashing and
+``get_json_object`` entry points take ``bucket=``, numeric factors and
+``pad_column``'s ``width``.
 """
 
 from __future__ import annotations
@@ -15,6 +33,10 @@ from __future__ import annotations
 import math
 import os
 from typing import Optional
+
+import torch
+
+from spark_rapids_jni_tpu_torch.table import Column, Table, resolve_device
 
 # smallest row bucket: keeps packed-validity byte counts whole for every
 # bucket
@@ -41,6 +63,17 @@ def factor() -> Optional[float]:
     except ValueError:
         return 2.0
     return f if f > 1.0 else None
+
+
+def resolve(bucket) -> Optional[float]:
+    """An entry point's ``bucket`` argument as a geometric factor, or None
+    for no bucketing: ``None`` -> None, ``"auto"`` -> :func:`factor`.  The
+    JAX package's numeric factors have no caller in the port yet."""
+    if bucket is None:
+        return None
+    if bucket == "auto":
+        return factor()
+    raise ValueError(f"bucket must be None or 'auto', got {bucket!r}")
 
 
 def bucket_rows(n: int, f: Optional[float] = None) -> int:
@@ -75,3 +108,103 @@ def split_bucket(b: int, f: Optional[float] = None) -> int:
     split re-buckets onto.  At :data:`MIN_ROWS` the grid bottoms out and
     ``split_bucket(b) == b``."""
     return bucket_rows(max(1, int(b) // 2), f)
+
+
+# ---------------------------------------------------------------------------
+# Padding up to a bucket and slicing back
+# ---------------------------------------------------------------------------
+
+def prefix_mask(n: int, b: int, device=None) -> torch.Tensor:
+    """Packed validity (uint8 ``[ceil(b/8)]``, LSB-first) with rows
+    ``[0, n)`` valid and ``[n, b)`` invalid."""
+    buf = torch.zeros(((b + 7) // 8,), dtype=torch.uint8,
+                      device=resolve_device(device))
+    buf[:n // 8] = 0xFF
+    if n % 8:
+        buf[n // 8] = (1 << (n % 8)) - 1
+    return buf
+
+
+def pad_to(arr: torch.Tensor, shape) -> torch.Tensor:
+    """``arr`` zero-padded up to ``shape`` (each dimension >= its own), in
+    one new buffer; ``arr`` itself when it already has that shape."""
+    shape = tuple(shape)
+    if tuple(arr.shape) == shape:
+        return arr
+    out = torch.zeros(shape, dtype=arr.dtype, device=arr.device)
+    out[tuple(slice(0, s) for s in arr.shape)] = arr
+    return out
+
+
+def _pad_validity(validity: Optional[torch.Tensor], n: int, b: int,
+                  device) -> torch.Tensor:
+    if validity is None:
+        return prefix_mask(n, b, device)
+    if validity.shape[0] >= (b + 7) // 8:
+        return validity
+    # bits past n in the last byte are zero (pack_bools zero-pads), so a
+    # zero-byte tail marks every padded row invalid
+    return pad_to(validity, ((b + 7) // 8,))
+
+
+def bucketable(obj) -> bool:
+    """True when every column has a paddable form: fixed-width, or a
+    dense-padded string column."""
+    cols = obj.columns if isinstance(obj, Table) else [obj]
+    return all(c.dtype.is_fixed_width or c.is_padded for c in cols)
+
+
+def pad_column(col: Column, b: int) -> Column:
+    """``col`` padded to ``b`` rows whose tail is invalid; the validity is
+    materialised even when ``b`` is the column's row count.  A string
+    column's tail rows are zero-length."""
+    if not bucketable(col):
+        raise ValueError("only fixed-width and dense-padded string columns "
+                         "pad to a bucket")
+    n = col.num_rows
+    validity = _pad_validity(col.validity, n, b, col.device)
+    if col.dtype.is_string:
+        return Column(col.dtype, col.data, validity,
+                      pad_to(col.chars2d, (b, col.chars2d.shape[1])),
+                      pad_to(col.lens, (b,)))
+    return Column(col.dtype, pad_to(col.data, (b,) + col.data.shape[1:]),
+                  validity)
+
+
+def pad_table(table: Table, b: int) -> Table:
+    return Table(tuple(pad_column(c, b) for c in table.columns))
+
+
+def unpad_column(col: Column, n: int) -> Column:
+    """A padded result sliced back to ``n`` rows: its mask's first bytes,
+    copied, the bits past ``n`` cleared, so that no tail bit survives (the
+    bytes ``slice_table`` repacks, without unpacking the mask)."""
+    if col.num_rows == n:
+        return col
+    validity = col.validity
+    if validity is not None:
+        validity = validity[:(n + 7) // 8].clone()
+        if n % 8:
+            validity[-1] &= (1 << n % 8) - 1
+    if col.dtype.is_string:
+        return Column(col.dtype, col.data, validity, col.chars2d[:n],
+                      col.lens[:n])
+    return Column(col.dtype, col.data[:n], validity)
+
+
+def unpad_array(arr: torch.Tensor, n: int) -> torch.Tensor:
+    """A padded result's leading ``n`` rows."""
+    return arr[:n] if arr.shape[0] != n else arr
+
+
+def unpad_result(out, n: int):
+    """An op's result sliced back to ``n`` rows: a Column row-slices, a
+    tensor slices its leading axis, a tuple recurses; anything else passes
+    through."""
+    if isinstance(out, tuple):
+        return tuple(unpad_result(o, n) for o in out)
+    if isinstance(out, Column):
+        return unpad_column(out, n)
+    if isinstance(out, torch.Tensor) and out.dim() >= 1:
+        return unpad_array(out, n)
+    return out

@@ -5,7 +5,10 @@ dense-padded string columns):
 
 - A :class:`Column` holds ``data``, a 1-D tensor of the column's own torch
   dtype (64-bit columns are native ``int64``/``float64``/``uint64``
-  tensors), and an optional packed ``validity`` bitmask.
+  tensors), and an optional packed ``validity`` bitmask.  A decimal128
+  column's ``data`` is int32 ``[n, 4]``: four 32-bit limbs a value,
+  little-endian, in two's complement, the JAX package's uint32 limbs bit
+  for bit.
 - A string column is dense-padded: ``chars2d`` uint8 ``[n, W]`` (``W`` a
   multiple of 4, zeros past each length) and int32 ``lens [n]``; its
   ``data`` is an empty placeholder, as in the JAX package.  Arrow-layout
@@ -26,6 +29,7 @@ is no silent fallback to the CPU when no card is present.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Optional, Sequence
 
@@ -93,6 +97,7 @@ _NP_DTYPES = {
     "bool8": np.uint8,
     "date32": np.int32, "timestamp_us": np.int64,
     "decimal32": np.int32, "decimal64": np.int64,
+    "decimal128": np.uint32,   # the limb type of [n, 4] values
     "string": np.uint8,
 }
 
@@ -105,6 +110,7 @@ _TORCH_DTYPES = {
     "bool8": torch.uint8,
     "date32": torch.int32, "timestamp_us": torch.int64,
     "decimal32": torch.int32, "decimal64": torch.int64,
+    "decimal128": torch.int32,  # the limb type of [n, 4] values
     "string": torch.uint8,
 }
 
@@ -137,21 +143,28 @@ def decimal64(scale: int = 0) -> DType:
     return DType("decimal64", 8, scale)
 
 
+def decimal128(scale: int = 0) -> DType:
+    """DECIMAL(38, scale): 16-byte values as int32 ``[n, 4]`` limbs."""
+    return DType("decimal128", 16, scale)
+
+
 ALL_FIXED_WIDTH = (INT8, INT16, INT32, INT64, UINT8, UINT16, UINT32, UINT64,
                    FLOAT32, FLOAT64, BOOL8)
 
 _BY_KIND = {d.kind: d for d in ALL_FIXED_WIDTH + (STRING, DATE32,
                                                   TIMESTAMP64)}
+_DECIMALS = {"decimal32": decimal32, "decimal64": decimal64,
+             "decimal128": decimal128}
 
 
 def dtype_from_name(name: str) -> DType:
     """Inverse of ``repr(DType)``: ``"int64"``, ``"decimal32(scale=2)"``.
     Both packages print their types the same way, so this carries a
     schema across."""
-    m = re.fullmatch(r"(decimal32|decimal64)\(scale=(-?\d+)\)", name)
+    m = re.fullmatch(r"(decimal32|decimal64|decimal128)\(scale=(-?\d+)\)",
+                     name)
     if m:
-        return (decimal32 if m.group(1) == "decimal32"
-                else decimal64)(int(m.group(2)))
+        return _DECIMALS[m.group(1)](int(m.group(2)))
     if name not in _BY_KIND:
         raise ValueError(f"unknown column type {name!r}")
     return _BY_KIND[name]
@@ -161,6 +174,24 @@ def bits_view(data: torch.Tensor) -> torch.Tensor:
     """The same bytes as the signed integer type of the same width
     (``uint8`` for bytes): the view that comparisons and copies use."""
     return data.view(BITS_DTYPES[data.element_size()])
+
+
+def col_to_bytes(data: torch.Tensor) -> torch.Tensor:
+    """A fixed-width column's data as its little-endian bytes, uint8
+    ``[n, itemsize]`` (a view where the data is contiguous)."""
+    per_row = data.element_size() * math.prod(data.shape[1:])
+    return bits_view(data).contiguous().view(torch.uint8) \
+        .view(data.shape[0], per_row)
+
+
+def bytes_to_col(b: torch.Tensor, dt: "DType") -> torch.Tensor:
+    """Inverse of :func:`col_to_bytes`: uint8 ``[n, itemsize]`` to the
+    data of a ``dt`` column (int32 ``[n, 4]`` limbs for decimal128)."""
+    b = b.contiguous()
+    if dt.itemsize == 16:
+        return b.view(torch.int32)
+    return b.view(BITS_DTYPES[dt.itemsize]).view(b.shape[0]) \
+        .view(dt.torch_dtype)
 
 
 def bytes2d_to_words(b: torch.Tensor) -> torch.Tensor:
@@ -238,10 +269,11 @@ def valid_bits(columns: Sequence["Column"], start: int,
 class Column:
     """One column and an optional packed ``validity`` ``uint8 [ceil(n/8)]``
     (None: all valid).  Fixed width: ``data`` ``[n]`` of
-    ``dtype.torch_dtype``.  String: ``chars2d`` uint8 ``[n, W]`` (``W % 4
-    == 0``, zeros past each length) and int32 ``lens [n]``, with ``data``
-    an empty placeholder.  Columns are not modified in place after
-    construction; views of a decoded backing share its storage."""
+    ``dtype.torch_dtype`` (int32 ``[n, 4]`` limbs for decimal128).
+    String: ``chars2d`` uint8 ``[n, W]`` (``W % 4 == 0``, zeros past each
+    length) and int32 ``lens [n]``, with ``data`` an empty placeholder.
+    Columns are not modified in place after construction; views of a
+    decoded backing share its storage."""
 
     dtype: DType
     data: torch.Tensor
@@ -253,8 +285,8 @@ class Column:
     def from_numpy(values: np.ndarray, dtype: DType,
                    valid: Optional[np.ndarray] = None,
                    device=None) -> "Column":
-        """Build a column from host values; ``valid`` is a bool array
-        (None: all valid)."""
+        """Build a column from host values (uint32 ``[n, 4]`` limbs for
+        decimal128); ``valid`` is a bool array (None: all valid)."""
         packed = None
         if valid is not None:
             packed = np.packbits(np.asarray(valid, dtype=bool),
@@ -440,6 +472,31 @@ def slice_table(table: Table, start: int, end: int) -> Table:
     return Table(tuple(cols))
 
 
+def slice_table_dynamic(table: Table, start: int, size: int) -> Table:
+    """Rows ``[start, start + size)`` of a table as views, no repack: the
+    JAX package's ``slice_table_dynamic`` (its traced start serves every
+    equal batch from one program).  ``start`` must be a multiple of 8, so
+    that a packed mask slices as its bytes; the bits of the last mask byte
+    past ``size`` are those of the rows after the slice."""
+    if start % 8:
+        raise ValueError(f"start {start} is not a multiple of 8: packed "
+                         f"masks slice as bytes")
+    if not 0 <= start <= start + size <= table.num_rows:
+        raise ValueError(f"rows [{start}, {start + size}) outside "
+                         f"{table.num_rows}")
+    end = start + size
+    cols = []
+    for c in table.columns:
+        validity = None if c.validity is None else \
+            c.validity[start // 8:start // 8 + (size + 7) // 8]
+        if c.dtype.is_string:
+            cols.append(Column(c.dtype, c.data, validity,
+                               c.chars2d[start:end], c.lens[start:end]))
+        else:
+            cols.append(Column(c.dtype, c.data[start:end], validity))
+    return Table(tuple(cols))
+
+
 def _string_bytes(c: Column, W: int) -> torch.Tensor:
     """A string column's chars in a ``[n, W]`` window, zeroed past each
     length, and its lengths as the last entry of each row."""
@@ -475,6 +532,8 @@ def assert_tables_equivalent(a: Table, b: Table, *, check_nulls: bool = True):
         else:
             da = bits_view(ca.data)
             db = bits_view(cb.data).to(dev)
+            if da.dim() == 2:       # decimal128 limbs
+                va, vb = va[:, None], vb[:, None]
         if check_nulls:
             zero = torch.zeros((), dtype=da.dtype, device=dev)
             da = torch.where(va, da, zero)

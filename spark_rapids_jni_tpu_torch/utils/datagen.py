@@ -6,7 +6,8 @@ floats, random bloom bitsets), and event-log JSON documents for
 The schema helper ``cycle_dtypes`` follows the reference benchmark datagen
 (``generate_input.hpp:445-452``).  Values are uniform random bytes, so float
 columns hold every bit pattern, NaN payloads included (compare them by
-bits); BOOL8 columns hold 0 or 1; string bytes take all 256 values, not
+bits); BOOL8 columns hold 0 or 1; decimal128 columns hold any 128 bits,
+not only DECIMAL(38) magnitudes; string bytes take all 256 values, not
 only UTF-8.  Everything is drawn from one
 ``torch.Generator`` on the target device, so a 1M-row table needs no host
 round trip.  Torch's generators give other numbers than ``jax.random``:
@@ -67,7 +68,10 @@ def random_table(dtypes: Sequence[DType], num_rows: int, *, seed: int = 0,
                             dtype=torch.uint8, generator=gen, device=dev)
         if dt.kind == "bool8":
             raw &= 1
-        data = raw.view(BITS_DTYPES[dt.itemsize]).view(dt.torch_dtype)
+        if dt.itemsize == 16:        # decimal128: [n, 4] limbs
+            data = raw.view(torch.int32).view(num_rows, 4)
+        else:
+            data = raw.view(BITS_DTYPES[dt.itemsize]).view(dt.torch_dtype)
         cols.append(Column(dt, data, mask))
     return Table(tuple(cols))
 

@@ -22,6 +22,9 @@ NULL_MODES = ["none", "all", "zero", "some"]
 def jax_dtype(name):
     """The JAX package's DType for a port type name."""
     d = pt.dtype_from_name(name)
+    if d.kind == "decimal128":
+        from spark_rapids_jni_tpu.ops.decimal import decimal128
+        return decimal128(d.scale)
     if d.kind == "decimal32":
         return jt.decimal32(d.scale)
     if d.kind == "decimal64":
@@ -45,15 +48,17 @@ def _validity(rng, n, null_mode):
 def numpy_columns(rng, names, n, null_mode="some"):
     """(name, values, bool validity or None) per column: uniform random
     bytes (floats take every bit pattern, NaN payloads included), BOOL8 as
-    0/1."""
+    0/1, decimal128 as uint32 ``[n, 4]`` limbs of any 128 bits."""
     cols = []
     for name in names:
         d = pt.dtype_from_name(name)
         raw = rng.integers(0, 256, n * d.itemsize, dtype=np.uint8)
         if d.kind == "bool8":
             raw &= 1
-        cols.append((name, raw.view(d.np_dtype),
-                     _validity(rng, n, null_mode)))
+        values = raw.view(d.np_dtype)
+        if d.itemsize == 16:
+            values = values.reshape(n, 4)
+        cols.append((name, values, _validity(rng, n, null_mode)))
     return cols
 
 
@@ -89,12 +94,22 @@ def both_tables(rng, names, n, null_mode="some"):
 def tables_from_columns(cols):
     """The table of :func:`numpy_columns`' ``(name, values, validity)``
     tuples in both packages: (JAX Table, port Table on the CPU)."""
-    jax_table = jt.Table(tuple(jt.Column.from_numpy(v, jax_dtype(name), ok)
+    jax_table = jt.Table(tuple(_jax_column(name, v, ok)
                                for name, v, ok in cols))
     port = pt.Table(tuple(
         pt.Column.from_numpy(v, pt.dtype_from_name(name), ok, device="cpu")
         for name, v, ok in cols))
     return jax_table, port
+
+
+def _jax_column(name, values, valid):
+    """A JAX column of host values; decimal128 limbs go in as they are (the
+    JAX ``Column.from_numpy`` has no numpy type for them)."""
+    d = jax_dtype(name)
+    if d.kind != "decimal128":
+        return jt.Column.from_numpy(values, d, valid)
+    validity = None if valid is None else jt.pack_bools(jnp.asarray(valid))
+    return jt.Column(d, jnp.asarray(values, jnp.uint32), validity)
 
 
 def xx_as_int64(pairs) -> np.ndarray:
@@ -113,7 +128,8 @@ def port_table(rng, names, n, null_mode="some"):
 
 def jax_columns(table):
     """A JAX table as interop tuples (64-bit plane pairs as native values;
-    a padded string column as its chars2d and lengths)."""
+    decimal128 as uint32 ``[n, 4]`` limbs; a padded string column as its
+    chars2d and lengths)."""
     out = []
     for c in table.columns:
         validity = None if c.validity is None else np.asarray(c.validity)
@@ -122,6 +138,9 @@ def jax_columns(table):
                         np.asarray(c.str_lens()), validity))
             continue
         data = np.asarray(c.data)
+        if c.dtype.kind == "decimal128":
+            out.append((repr(c.dtype), data.astype(np.uint32), validity))
+            continue
         if data.ndim == 2 and c.dtype.itemsize == 8:
             data = jt.pair_to_np64(data, c.dtype.np_dtype)
         out.append((repr(c.dtype), data.view(c.dtype.np_dtype), validity))

@@ -13,14 +13,17 @@ import torch
 from spark_rapids_jni_tpu_torch import (
     BOOL8, DATE32, FLOAT32, FLOAT64, INT8, INT16, INT32, INT64, STRING,
     TIMESTAMP64, UINT8, UINT16, UINT32, UINT64, Column, Table, decimal32,
-    decimal64,
+    decimal64, decimal128,
 )
 from spark_rapids_jni_tpu_torch.ops import get_json as gj
 from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
 from spark_rapids_jni_tpu_torch.ops import kernels, row_mxu
 from spark_rapids_jni_tpu_torch.ops import row_conversion as prc
+from spark_rapids_jni_tpu_torch.ops import row_kernels as prk
 from spark_rapids_jni_tpu_torch.ops.row_layout import compute_row_layout
-from spark_rapids_jni_tpu_torch.table import assert_tables_equivalent
+from spark_rapids_jni_tpu_torch.table import (
+    assert_tables_equivalent, bits_view, pack_bools, valid_bits,
+)
 from spark_rapids_jni_tpu_torch.utils import (
     cycle_dtypes, json_event_docs, random_bitset, random_table,
     special_floats, strings_with_lengths,
@@ -131,6 +134,13 @@ def test_launches_count_kernel_runs_only(cuda):
     assert torch.equal(rows4, kernels.planes_to_rows_plain(planes, 5, 90))
     assert torch.equal(kernels.rows_to_planes(rows4),
                        kernels.rows_to_planes_plain(rows4))
+    rows10 = kernels.to_rows_cols(t, layout, 3, 97)
+    assert torch.equal(rows10, kernels.to_rows_cols_plain(t, layout, 3, 97))
+    got, want11 = (kernels.from_rows_cols(rows10, layout),
+                   kernels.from_rows_cols_plain(rows10, layout))
+    assert torch.equal(got[1], want11[1])
+    assert all(torch.equal(bits_view(d), bits_view(p))
+               for d, p in zip(got[0], want11[0]))
     want = dict.fromkeys(kernels.launches, 1)
     assert kernels.launches == want
     empty = kernels.decode_planes(rows[:0], layout)
@@ -141,6 +151,10 @@ def test_launches_count_kernel_runs_only(cuda):
     assert kernels.planes_to_rows(planes, 97, 0).shape == (
         0, 4 * planes.shape[0])
     assert kernels.rows_to_planes(rows4[:0]).shape == (planes.shape[0], 0)
+    assert kernels.to_rows_cols(t, layout, 100, 0).shape == (
+        0, layout.fixed_row_size)
+    assert kernels.from_rows_cols(rows10[:0], layout)[1].shape == (
+        layout.num_columns, 0)
     assert kernels.launches == want
 
 
@@ -442,3 +456,85 @@ def test_pallas_route_and_serve_on_the_card_match_the_cpu(cuda):
     for a, b, orig in zip(answers[0][1], answers[1][1], cols):
         np.testing.assert_array_equal(a, orig)
         np.testing.assert_array_equal(b, orig)
+
+
+DEC_SCHEMA = [INT8, decimal128(2), INT64, INT16, BOOL8, decimal128(38),
+              FLOAT32, UINT8, decimal128(0)]
+ROW_SCHEMAS = {**SCHEMAS, "decimal128": DEC_SCHEMA,
+               # 1-byte columns at the 1 KB row limit: 910 + 114 bytes
+               "int8_910": [INT8] * 910}
+
+
+def _hold_row_kernels(t, layout, start, size):
+    """K10 over rows [start, start + size) of ``t`` and K11 over its rows
+    against their plain versions; K11 gives the table's rows back."""
+    rows = kernels.to_rows_cols(t, layout, start, size)
+    assert torch.equal(rows, kernels.to_rows_cols_plain(t, layout, start,
+                                                        size))
+    datas, vmask = kernels.from_rows_cols(rows, layout)
+    pdatas, pvmask = kernels.from_rows_cols_plain(rows, layout)
+    assert torch.equal(vmask, pvmask)
+    assert torch.equal(vmask, pack_bools(valid_bits(t.columns, start, size)))
+    # by bits: random float bits hold NaNs, which equal nothing
+    for c, d, p in zip(t.columns, datas, pdatas):
+        assert torch.equal(bits_view(d), bits_view(p))
+        assert torch.equal(bits_view(d),
+                           bits_view(c.data[start:start + size]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schema", sorted(ROW_SCHEMAS))
+@pytest.mark.parametrize("n", [1, 31, 33, 1000])
+def test_row_kernels_match_plain_versions(cuda, schema, n):
+    """K10 and K11 against their plain versions at ragged tiles, every
+    null pattern (no masks, all valid, all null, 25% null), the batch at an
+    odd start and at one that is not a multiple of 8."""
+    dtypes = ROW_SCHEMAS[schema]
+    layout = compute_row_layout(dtypes)
+    for nulls in (None, 0.0, 1.0, 0.25):
+        t = random_table(dtypes, n, seed=n, null_probability=nulls,
+                         device=cuda)
+        for start in sorted({0, min(3, n - 1), min(13, n - 1)}):
+            _hold_row_kernels(t, layout, start, n - start)
+    back = prk.from_rows_fixed(prk.to_rows_fixed(t, layout), layout)
+    assert_tables_equivalent(t, Table(back), check_nulls=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_rows", [32, 64, 480])
+def test_row_kernels_tile_sizes(cuda, tile_rows):
+    """Any tile of a multiple of 32 rows gives the same rows and columns;
+    480 of the decimal128 schema's 104-byte rows take more than 48 KB."""
+    layout = compute_row_layout(DEC_SCHEMA)
+    t = random_table(DEC_SCHEMA, 6 * 1024 + 557, seed=9, device=cuda)
+    want = kernels.to_rows_cols_plain(t, layout, 5, t.num_rows - 5)
+    rows = kernels.to_rows_cols(t, layout, 5, t.num_rows - 5, tile_rows)
+    assert torch.equal(rows, want)
+    datas, vmask = kernels.from_rows_cols(rows, layout, tile_rows)
+    pdatas, pvmask = kernels.from_rows_cols_plain(rows, layout)
+    assert torch.equal(vmask, pvmask)
+    assert all(torch.equal(bits_view(d), bits_view(p))
+               for d, p in zip(datas, pdatas))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        kernels.to_rows_cols(t, layout, 0, 10, 48)
+
+
+@pytest.mark.gpu
+def test_row_kernels_past_2_31_bytes(cuda):
+    """K10 and K11 over rows past 2^31 bytes, compared in slices."""
+    dtypes = cycle_dtypes([INT64, FLOAT64, INT32, FLOAT32, INT16, INT8,
+                           BOOL8], 96)
+    layout = compute_row_layout(dtypes)
+    n = (1 << 31) // layout.fixed_row_size + 4099
+    t = random_table(dtypes, n, seed=11, device=cuda)
+    rows = kernels.to_rows_cols(t, layout, 0, n)
+    assert rows.numel() > 1 << 31
+    step = 1 << 20
+    for s in range(0, n, step):
+        size = min(step, n - s)
+        assert torch.equal(rows[s:s + size],
+                           kernels.to_rows_cols_plain(t, layout, s, size))
+    datas, vmask = kernels.from_rows_cols(rows, layout)
+    for c, d in zip(t.columns, datas):
+        assert torch.equal(bits_view(c.data), bits_view(d))
+    assert torch.equal(vmask, torch.stack([c.validity for c in t.columns]))
