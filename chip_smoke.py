@@ -30,7 +30,10 @@ launch count set to 0 just before the path and read just after:
   values, malformed documents and nulls) at ``$.a``, ``$.user.id`` and
   ``$.items[2].sku``, one K9 launch a call, a 100,000-row sample and every
   punted row against Python's ``json``; and over 4M compact documents
-  ``{"a":N,"b":"x"}`` at ``$.a``;
+  ``{"a":N,"b":"x"}`` at ``$.a``; K9 also on documents whose stepped chars
+  sit on its 16-char chunk boundaries (``gjo_quiet_edges``), with the
+  share of each timed window's chars it skips (replayed over the plain
+  carry) and its time at 64 and 256 threads a block;
 - the word-plane engine, ``convert_to_rows``/``convert_from_rows`` with
   ``impl="pallas"`` (``runtime`` and ``ops.plane_rows``): 1M rows of the
   212-column schema in one batch, one pack (K4) and one unpack (K5)
@@ -146,11 +149,21 @@ BLOOM_PROBE = 20              # one probe: index, remainder, address, bit
 # Two instructions for four chars stay under every char's need, so the
 # bytes side bounds K9.
 GJO_LEAST_OPS_4_CHARS = 2
-# A diagnostic, not the bound: the instructions of the kernel's own step on
-# the common path (no key byte read, no descent, no capture end), 869 in the
-# main loop of the built kernel's SASS for its four chars, branches, loads
-# and moves left out.  The kernel runs the whole step for every char.
-GJO_STEP = 217
+# Diagnostics, not the bound: instructions of the kernel's own loop,
+# counted in the SASS of its 16-byte-chunk instance (cuobjdump -sass
+# build/torch_kernels/gjo_scan-*.so, CUDA 12.8), branches and moves
+# included.  GJO_STEP is an iteration that runs the whole step on its common
+# path (no key byte read, no descent): 300 for the step and 52 for the loop
+# itself (the chunk-position test, the quiet tests and the skip, the char
+# and its class, the loop's end).  GJO_STEP_FOUND is an iteration that runs
+# the step of a found row (59 + 52), GJO_CHUNK_TEST the load of a chunk
+# with its SIMD compares.  The kernel steps only the chars that can change
+# its carry (get_json.gjo_scan_walk counts them), but a warp issues the
+# chunk's instructions in nearly every iteration: some lane is nearly
+# always at a chunk boundary.
+GJO_STEP = 352
+GJO_STEP_FOUND = 111
+GJO_CHUNK_TEST = 106
 
 # get_json_object: 1M event-log documents in a 1024-byte window, the three
 # paths users ask of them, the rows held against Python's json, Spark's
@@ -158,6 +171,10 @@ GJO_STEP = 217
 # pass 2^31 bytes
 N_GJO, W_GJO = 1_000_000, 1024
 GJO_PATHS = ("$.a", "$.user.id", "$.items[2].sku")
+# the edge paths of tests/test_torch_kernels.py: 8 segments, a 254-byte key
+GJO_EDGE_PATHS = ("$.p.q[1].r.s[0][1].t", "$." + "k" * 254)
+# windows of the chunk-boundary documents (gjo_quiet_edges)
+GJO_EDGE_WIDTHS = (1024, 4096)
 N_GJO_SAMPLE = 100_000
 N_GJO_WIDE, W_GJO_WIDE = 600_000, 4096
 # the serve rows op at the reference benchmark's 212 columns (bench.py:2-6,
@@ -185,7 +202,14 @@ KERNELS = (  # name, the TPU kernel it replaces
 )
 
 
+# the script's start on the host clock; each phase line carries its seconds
+# since then ("t")
+_T0 = []
+
+
 def emit(**fields):
+    if _T0 and "phase" in fields:
+        fields["t"] = time.perf_counter() - _T0[0]
     print(json.dumps(fields), flush=True)
 
 
@@ -1086,27 +1110,43 @@ def _gjo_segs(path):
                      default=1)
 
 
-def _hold_scan(ch, segs, mkl, errs, what):
-    """K9 against its plain version on ``ch``; returns K9's fields."""
-    from spark_rapids_jni_tpu_torch.ops import get_json as gj
-    got = gj.gjo_scan(ch, segs, mkl)
-    plain = gj.gjo_scan_plain(ch, segs, mkl)
+def _check_scan(got, plain, errs, what):
     errs["gjo_scan"] = max(errs["gjo_scan"], max_abs_err(got, plain))
     check(torch.equal(got, plain), f"gjo_scan kernel != plain version: "
                                    f"{what}")
-    return got
 
 
-def _gjo_bound(ch) -> dict:
+def _hold_scan(ch, segs, mkl, errs, what, walk=False):
+    """K9 against its plain version on ``ch``; returns K9's fields, and
+    with ``walk`` also the walk's counts, replayed beside the plain version
+    (``gjo_scan_walk``)."""
+    from spark_rapids_jni_tpu_torch.ops import get_json as gj
+    got = gj.gjo_scan(ch, segs, mkl)
+    if not walk:
+        _check_scan(got, gj.gjo_scan_plain(ch, segs, mkl), errs, what)
+        return got
+    plain, skipped, iters = gj.gjo_scan_walk(ch, segs, mkl)
+    _check_scan(got, plain, errs, what)
+    return got, skipped, iters
+
+
+def _gjo_bound(ch, skipped, iters) -> dict:
     """K9's least time: each char read once and six words a row written,
     against GJO_LEAST_OPS_4_CHARS instructions for four chars of the
-    window; beside it, as a diagnostic, the time of the kernel's own
-    GJO_STEP instructions a char at the card's issue rate."""
+    window.  Beside it, as diagnostics, the kernel's walk replayed with
+    torch ops over the plain carry (``skipped`` and ``iters`` of
+    ``get_json.gjo_scan_walk``): the share of the window's chars it skips,
+    its loop's iterations a row and a warp's (the most of its 32 rows), and
+    the loop's instruction counts."""
     n, W = ch.shape
-    step = n * W * GJO_STEP
+    warp = torch.nn.functional.pad(iters, (0, -n % 32)).view(-1, 32).amax(1)
     return {**_bound(n * W + 24 * n, -(-n * W // 4) * GJO_LEAST_OPS_4_CHARS),
-            "step_instructions": step,
-            "step_ms": step / PEAK_INSTR_PER_S * 1e3}
+            "quiet_share": float(skipped.sum()) / (n * W),
+            "iterations_per_row": float(iters.double().mean()),
+            "warp_iterations": float(warp.double().mean()),
+            "loop_instructions": {"step": GJO_STEP,
+                                  "step_found": GJO_STEP_FOUND,
+                                  "chunk_test": GJO_CHUNK_TEST}}
 
 
 def _gjo_call_split(col, path, runs=5) -> dict:
@@ -1182,7 +1222,11 @@ def phase_get_json_1m(errs, timing):
         for name, v in launches.items():
             total[name] = total.get(name, 0) + v
         segs, mkl = _gjo_segs(path)
-        st = _hold_scan(col.chars2d, segs, mkl, errs, f"1M {path}")
+        if path == GJO_PATHS[0]:
+            st, skipped, iters = _hold_scan(col.chars2d, segs, mkl, errs,
+                                            f"1M {path}", walk=True)
+        else:
+            st = _hold_scan(col.chars2d, segs, mkl, errs, f"1M {path}")
         _hold_sample(out, docs, rows, path, "1M")
         found = int(out.valid_bools().sum())
         del out
@@ -1198,7 +1242,7 @@ def phase_get_json_1m(errs, timing):
         "plain_ms": median_ms(lambda: gj.gjo_scan_plain(col.chars2d, segs,
                                                         mkl),
                               runs=1, warmup=0),
-        **_gjo_bound(col.chars2d)}
+        **_gjo_bound(col.chars2d, skipped, iters)}
     emit(phase="profile_get_json_1m", path=GJO_PATHS[0],
          call=profile_breakdown(lambda: get_json_object(col, GJO_PATHS[0])))
     emit(phase="get_json_1m", rows=N_GJO, width=W_GJO,
@@ -1242,7 +1286,8 @@ def phase_get_json_4m_compact(errs, timing):
     check(launches["gjo_scan"] == 1 and sum(launches.values()) == 1,
           f"compact launches {launches}")
     segs, mkl = _gjo_segs("$.a")
-    _hold_scan(col.chars2d, segs, mkl, errs, "4M compact")
+    _, skipped, iters = _hold_scan(col.chars2d, segs, mkl, errs,
+                                   "4M compact", walk=True)
     want_lens = torch.from_numpy(np.where(v >= 10, 2, 1).astype(np.int32))
     check(bool(out.valid_bools().all())
           and torch.equal(out.lens.cpu(), want_lens), "compact lengths")
@@ -1259,7 +1304,8 @@ def phase_get_json_4m_compact(errs, timing):
                         flush=True),
         "plain_ms": median_ms(lambda: gj.gjo_scan_plain(col.chars2d, segs,
                                                         mkl), runs=3),
-        **_gjo_bound(col.chars2d), **_gjo_call_split(col, "$.a")}
+        **_gjo_bound(col.chars2d, skipped, iters),
+        **_gjo_call_split(col, "$.a")}
     emit(phase="get_json_4m_compact", rows=N_4M, width=16,
          launches=launches, equal_plain=True, equal_oracle=True,
          all_rows_checked=True, peak_memory_bytes=peak)
@@ -1293,6 +1339,47 @@ def phase_gjo_offsets_64bit(errs):
          chars_bytes=ch.numel(), found_rows_past_2_31=finds,
          equal_plain=True,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def phase_gjo_quiet_edges(errs):
+    """K9 against its plain version on the documents whose stepped chars
+    sit on its 16-char chunk boundaries (``utils.json_boundary_docs``), in
+    windows of 1024 and 4096 chars, at GJO_PATHS and GJO_EDGE_PATHS, the
+    plain version run on the host (its small per-char ops would cost more
+    in launches on the card); at W = 1024 also with rows 4 and 1 bytes
+    apart (the kernel's word and byte chunk loads), against its result on
+    the contiguous rows.  Prints each window's quiet share at ``$.a``."""
+    from spark_rapids_jni_tpu_torch.ops import get_json as gj
+    from spark_rapids_jni_tpu_torch.utils import (
+        json_boundary_docs, json_window,
+    )
+    windows, cases = {}, 0
+    for W in GJO_EDGE_WIDTHS:
+        host = json_window(json_boundary_docs(W), W, device="cpu")
+        ch = host.to(CARD)
+        for path in GJO_PATHS + GJO_EDGE_PATHS:
+            segs, mkl = _gjo_segs(path)
+            got = gj.gjo_scan(ch, segs, mkl)
+            if path == GJO_PATHS[0]:
+                want, skipped, _ = gj.gjo_scan_walk(host, segs, mkl)
+                windows[W] = {"rows": ch.shape[0],
+                              "quiet_share": int(skipped.sum()) / ch.numel()}
+            else:
+                want = gj.gjo_scan_plain(host, segs, mkl)
+            _check_scan(got, want.to(CARD), errs, f"boundary W={W} {path}")
+            cases += 1
+            if path == GJO_PATHS[0] and W == 1024:
+                for extra in (4, 1):
+                    buf = torch.zeros((ch.shape[0], W + extra),
+                                      dtype=torch.uint8, device=CARD)
+                    buf[:, :W] = ch
+                    check(torch.equal(gj.gjo_scan(buf[:, :W], segs, mkl),
+                                      got),
+                          f"gjo_scan at pitch {W + extra}")
+                    cases += 1
+    emit(phase="gjo_quiet_edges", windows=windows, cases=cases,
+         paths=[p if len(p) < 32 else p[:8] + "..."
+                for p in GJO_PATHS + GJO_EDGE_PATHS], equal_plain=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1702,7 +1789,7 @@ def phase_decimal128_rows_1m(errs):
     from spark_rapids_jni_tpu_torch.ops import (
         compute_row_layout, convert_from_rows,
         convert_from_rows_fixed_width_optimized, convert_to_rows,
-        convert_to_rows_fixed_width_optimized, kernels, row_kernels,
+        convert_to_rows_fixed_width_optimized, kernels, row_kernels, row_mxu,
     )
     from spark_rapids_jni_tpu_torch.ops.decimal import decimal128_to_ints
     from spark_rapids_jni_tpu_torch.table import (
@@ -1761,11 +1848,25 @@ def phase_decimal128_rows_1m(errs):
                                               len(DEC_EDGES)).columns[0])
         check(all(v is None or v == e for v, e in zip(head, DEC_EDGES)),
               f"decimal128 edge values {head}")
+    # K1 at this schema: 392-byte rows (8-byte stores), a decimal128 slot
+    # four whole words
+    gc = row_mxu.table_to_grouped(table, layout)
+    wmap = kernels.encode_word_map(layout)
+    nbytes = (4 * row_mxu._data_words(layout) * N_1M + gc.vmask.numel()
+              + N_1M * layout.fixed_row_size)
+    k1 = {"ms": median_ms(lambda: kernels.grouped_encode(
+              gc.planes, gc.vmask, layout, 0, N_1M)),
+          "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+          "word_map": {"whole": int((wmap >= 0).sum()),
+                       "zero": int((wmap == -1).sum()),
+                       "mixed": int((wmap == -2).sum())}}
+    del gc
     emit(phase="decimal128_rows_1m", rows=N_1M, columns=len(table.columns),
          row_size=layout.fixed_row_size, scales=list(DEC_SCALES),
          edge_values=[str(v) for v in DEC_EDGES], launches=launches,
          blobs_equal=sorted(engines), roundtrip_bit_exact=True,
-         equal_plain=True, peak_memory_bytes=torch.cuda.max_memory_allocated())
+         equal_plain=True, grouped_encode=k1,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
     return counts
 
 
@@ -2031,6 +2132,7 @@ def main():
     from spark_rapids_jni_tpu_torch.utils import cycle_dtypes, random_table
 
     t_start = time.perf_counter()
+    _T0.append(t_start)
     smi = nvidia_smi_line()
     emit(phase="device", nvidia_smi=smi,
          kind=torch.cuda.get_device_name(0),
@@ -2084,9 +2186,13 @@ def main():
     oracle = convert_to_rows_fixed_width_optimized(table)[0].data
     check(torch.equal(blob, oracle), "encode kernel != gather oracle")
     del oracle
+    wmap = kernels.encode_word_map(layout)
     emit(phase="encode_1m", rows=N_1M, row_size=rs, batches=len(batches),
          launches=main_launches["grouped_encode"], equal_plain=True,
-         equal_oracle=True)
+         equal_oracle=True,
+         word_map={"whole": int((wmap >= 0).sum()),
+                   "zero": int((wmap == -1).sum()),
+                   "mixed": int((wmap == -2).sum())})
 
     planes_k, vmask_k = kernels.decode_planes(blob, layout)
     planes_p, vmask_p = kernels.decode_planes_plain(blob, layout)
@@ -2214,6 +2320,7 @@ def main():
     torch.cuda.empty_cache()
     add_launches(phase_get_json_4m_compact(errs, timing))
     torch.cuda.empty_cache()
+    phase_gjo_quiet_edges(errs)
     check(path_launches["gjo_scan"] > 0,
           f"gjo_scan never launched on its path: {path_launches}")
 

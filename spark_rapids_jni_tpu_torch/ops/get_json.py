@@ -8,10 +8,13 @@ object-key and array-subscript paths (``$.k1.k2``, ``$.a[0].b``,
 - :func:`gjo_scan` (K9, ``csrc/gjo_scan.cu``) replaces the TPU kernel
   ``spark_rapids_jni_tpu/ops/pallas_kernels.py::_gjo_scan_kernel``: the
   path automaton over every row's padded char window, one thread a row,
-  int32 ``[6, n]`` of (start, end, found, capturing, bad, deep).  Its
+  int32 ``[6, n]`` of (start, end, found, capturing, bad, deep); it skips
+  the runs of chars that leave the automaton's carry as it is.  Its
   plain version :func:`gjo_scan_plain` is the JAX package's
-  ``_automaton_pieces`` step run over the window position by position
-  (``_scan_automaton``), with torch ops on ``[n]`` vectors.
+  ``_automaton_pieces`` step (:func:`_plain_step`) run over the window
+  position by position (``_scan_automaton``), with torch ops on ``[n]``
+  vectors; :func:`gjo_scan_walk` replays the kernel's walk beside it
+  (which chars it skips, :func:`_quiet_chars`).
 - The tail after the scan (value extraction, the punt classes, the
   assembly) is torch glue, as it is XLA in the JAX package.
 - The host fixup is part of the function, as in the JAX package: rows whose
@@ -39,7 +42,7 @@ from __future__ import annotations
 import functools
 import json
 import re
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -129,153 +132,271 @@ def _check_chars(ch: torch.Tensor):
     _check(ch.shape[1] < 1 << 31, f"window {ch.shape[1]} passes int32")
 
 
-def gjo_scan_plain(ch: torch.Tensor, segs, max_key_len: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`gjo_scan`: the JAX package's
-    ``_automaton_pieces`` step over the window, one position at a time,
-    every carry in its JAX type (uint8 depth, matched, key_pos and
-    cap_depth wrap; elem_count, start and end are int32)."""
-    _check_chars(ch)
-    segs = tuple(segs)
+class _PathTables(NamedTuple):
+    """The path's tables on one device, as the plain step reads them."""
+    keys: torch.Tensor     # uint8 [L, max_key_len]
+    lens: torch.Tensor     # uint8 [L]
+    isidx: torch.Tensor    # bool [L]
+    tgt: torch.Tensor      # int32 [L]
+    last: int              # L - 1
+    max_key_len: int
+
+
+class _Carry(NamedTuple):
+    """The automaton's carry over ``[n]`` rows, every field in its JAX type
+    (``_automaton_pieces``' make_carry0): bools, uint8 depth, matched,
+    key_pos and cap_depth (they wrap), int32 elem_count, start and end."""
+    in_str: torch.Tensor
+    esc: torch.Tensor
+    in_key: torch.Tensor
+    key_ok: torch.Tensor
+    await_colon: torch.Tensor
+    capturing: torch.Tensor
+    elem_pending: torch.Tensor
+    found: torch.Tensor
+    bad: torch.Tensor
+    pending: torch.Tensor
+    cap_is_str: torch.Tensor
+    expect_key: torch.Tensor
+    deep: torch.Tensor
+    depth: torch.Tensor
+    matched: torch.Tensor
+    key_pos: torch.Tensor
+    cap_depth: torch.Tensor
+    elem_count: torch.Tensor
+    start: torch.Tensor
+    end: torch.Tensor
+
+
+def _plain_tables(segs: Tuple, max_key_len: int, dev) -> _PathTables:
     seg_bytes, tab = _segment_tables(segs, max_key_len)
-    n, W = ch.shape
-    dev = ch.device
-    last = len(segs) - 1
-    keys_t = torch.from_numpy(seg_bytes).to(dev)
-    lens_t = torch.from_numpy(tab[0].astype(np.uint8)).to(dev)
-    isidx_t = torch.from_numpy(tab[1] != 0).to(dev)
-    tgt_t = torch.from_numpy(tab[2]).to(dev)
+    return _PathTables(torch.from_numpy(seg_bytes).to(dev),
+                       torch.from_numpy(tab[0].astype(np.uint8)).to(dev),
+                       torch.from_numpy(tab[1] != 0).to(dev),
+                       torch.from_numpy(tab[2]).to(dev), len(segs) - 1,
+                       max_key_len)
+
+
+def _plain_carry0(n: int, dev) -> _Carry:
+    zb = torch.zeros(n, dtype=torch.bool, device=dev)
+    z8 = torch.zeros(n, dtype=torch.uint8, device=dev)
+    zi = torch.zeros(n, dtype=torch.int32, device=dev)
+    return _Carry(in_str=zb, esc=zb, in_key=zb, key_ok=~zb, await_colon=zb,
+                  capturing=zb, elem_pending=zb, found=zb, bad=zb,
+                  pending=zb, cap_is_str=zb, expect_key=zb, deep=zb,
+                  depth=z8, matched=z8, key_pos=z8, cap_depth=z8,
+                  elem_count=zi, start=zi - 1, end=zi - 1)
+
+
+def _plain_step(c: _Carry, x: torch.Tensor, pos: int,
+                t: _PathTables) -> _Carry:
+    """One step of ``_automaton_pieces`` over ``[n]`` rows: the carry after
+    char ``x`` (uint8 ``[n]``) at window position ``pos``."""
+    n = x.shape[0]
+    dev = x.device
+    last = t.last
+    z8 = torch.zeros(n, dtype=torch.uint8, device=dev)
+    zi = torch.zeros(n, dtype=torch.int32, device=dev)
 
     def seg(m):    # the index of segment min(m, L - 1)
         return m.clamp(max=last).long()
 
-    zb = torch.zeros(n, dtype=torch.bool, device=dev)
-    z8 = torch.zeros(n, dtype=torch.uint8, device=dev)
-    zi = torch.zeros(n, dtype=torch.int32, device=dev)
-    in_str = esc = in_key = await_colon = capturing = elem_pending = zb
-    found = bad = pending = cap_is_str = expect_key = deep = zb
-    key_ok = ~zb
-    depth = matched = key_pos = cap_depth = z8
-    elem_count = zi
-    start = end = zi - 1
+    in_str, esc, in_key, key_ok = c.in_str, c.esc, c.in_key, c.key_ok
+    await_colon, capturing, elem_pending = (c.await_colon, c.capturing,
+                                            c.elem_pending)
+    found, bad, pending, cap_is_str = c.found, c.bad, c.pending, c.cap_is_str
+    expect_key, deep, depth, matched = (c.expect_key, c.deep, c.depth,
+                                        c.matched)
+    key_pos, cap_depth, elem_count = c.key_pos, c.cap_depth, c.elem_count
+    start, end = c.start, c.end
+
+    is_q = x == ord('"')
+    is_bs = x == ord("\\")
+    is_ws = (x == 32) | (x == 9) | (x == 10) | (x == 13)
+    is_open = (x == ord("{")) | (x == ord("["))
+    is_close = (x == ord("}")) | (x == ord("]"))
+    is_colon = x == ord(":")
+    is_comma = x == ord(",")
+
+    eff_q = is_q & ~esc
+    new_in_str = in_str ^ eff_q
+    new_esc = in_str & ~esc & is_bs
+    outside = ~in_str
+    opens = outside & is_open
+    new_deep = deep | (opens & (depth >= 250))
+    new_depth = (depth + (opens & (depth < 250)).to(torch.uint8)
+                 - (outside & is_close).to(torch.uint8))
+    at_frontier = depth == matched + 1
+
+    # key scanning at the frontier
+    key_opening = (outside & eff_q & expect_key & ~in_key & ~await_colon
+                   & ~capturing & ~found & at_frontier)
+    key_char = in_key & in_str & ~eff_q
+    seg_idx = seg(matched)
+    expect = t.keys[seg_idx, key_pos.clamp(max=t.max_key_len - 1).long()]
+    this_len = t.lens[seg_idx]
+    ok_char = key_char & (key_pos < this_len) & (x == expect) & ~esc
+    new_key_ok = key_ok & (~key_char | ok_char)
+    new_key_pos = torch.where(key_char, key_pos + 1, key_pos)
+    key_closing = in_key & eff_q & in_str
+    full_match = key_closing & new_key_ok & (new_key_pos == this_len)
+    new_await = torch.where(key_closing, full_match, await_colon)
+    new_in_key = (in_key | key_opening) & ~key_closing
+    new_key_pos = torch.where(key_opening, z8, new_key_pos)
+    new_key_ok = new_key_ok | key_opening
+
+    # value entry after a matched key's colon
+    saw_colon = await_colon & outside & is_colon
+    new_await = new_await & ~saw_colon
+    new_pending = pending | saw_colon
+    key_value_starts = new_pending & ~is_ws & ~saw_colon
+
+    # element entry at an index segment's frontier array
+    fr_is_idx = t.isidx[seg_idx]
+    live = ~capturing & ~found
+    elem_value_starts = (elem_pending & fr_is_idx & outside & ~is_ws
+                         & ~is_comma & ~is_close & at_frontier & live)
+    value_starts = key_value_starts | elem_value_starts
+
+    is_last = matched == last
+    next_is_idx = t.isidx[seg(matched + 1)]
+    expected_open = torch.where(next_is_idx, ord("["), ord("{")) \
+        .to(torch.uint8)
+    descend = value_starts & ~is_last & (x == expected_open) & live
+    deadend = value_starts & ~is_last & (x != expected_open) & live
+    start_cap = value_starts & is_last & live
+    new_matched = matched + descend.to(torch.uint8)
+    exhausted = (outside & is_close & ~capturing & (matched > 0)
+                 & (new_depth == matched) & ~found)
+    new_pending = new_pending & ~(value_starts | deadend)
+    new_bad = bad | deadend | exhausted
+
+    # the element counter: commas at the frontier array's depth
+    elem_comma = outside & is_comma & fr_is_idx & at_frontier & live
+    new_count = elem_count + elem_comma.to(torch.int32)
+    new_elem_pending = torch.where(
+        elem_comma, new_count == t.tgt[seg_idx],
+        elem_pending & ~elem_value_starts)
+
+    # key position for the (possibly new) frontier
+    new_frontier = new_matched + 1
+    new_seg = seg(new_matched)
+    new_fr_idx = t.isidx[new_seg]
+    opens_frontier = (outside & (x == ord("{"))
+                      & (new_depth == new_frontier) & ~new_fr_idx)
+    comma_frontier = (outside & is_comma & (depth == new_frontier)
+                      & ~capturing & ~new_fr_idx)
+    clears_key_pos = ~is_ws & outside & ~eff_q & ~is_open & ~is_comma
+    new_expect_key = (opens_frontier | comma_frontier
+                      | (expect_key & ~(key_opening | clears_key_pos)))
+
+    # entering the frontier array arms the element counter
+    arr_open = (outside & (x == ord("[")) & new_fr_idx
+                & (new_depth == new_frontier) & live)
+    new_count = torch.where(arr_open, zi, new_count)
+    new_elem_pending = torch.where(arr_open, t.tgt[new_seg] == 0,
+                                   new_elem_pending)
+
+    # capture start and end
+    new_start = torch.where(start_cap, zi + pos, start)
+    new_cap_depth = torch.where(start_cap, depth, cap_depth)
+    new_cap_is_str = torch.where(start_cap, is_q, cap_is_str)
+    new_capturing = capturing | start_cap
+    started = new_capturing & (new_start >= 0) & ~found
+    cont_end = (started & outside & is_close
+                & (new_depth == new_cap_depth) & (pos > new_start))
+    scalar_term = (started & ~new_cap_is_str & outside
+                   & (is_comma | is_close) & (depth == new_cap_depth)
+                   & (pos > new_start))
+    str_end = (started & new_cap_is_str & eff_q & in_str
+               & (pos > new_start))
+    ends_now = cont_end | scalar_term | str_end
+    end_pos = (zi + pos + 1) - (scalar_term & ~cont_end
+                                & ~str_end).to(torch.int32)
+    return _Carry(
+        in_str=new_in_str, esc=new_esc, in_key=new_in_key, key_ok=new_key_ok,
+        await_colon=new_await, capturing=new_capturing & ~ends_now,
+        elem_pending=new_elem_pending, found=found | ends_now, bad=new_bad,
+        pending=new_pending, cap_is_str=new_cap_is_str,
+        expect_key=new_expect_key, deep=new_deep, depth=new_depth,
+        matched=new_matched, key_pos=new_key_pos, cap_depth=new_cap_depth,
+        elem_count=new_count, start=new_start,
+        end=torch.where(ends_now, end_pos, end))
+
+
+def gjo_scan_plain(ch: torch.Tensor, segs, max_key_len: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gjo_scan`: the JAX package's
+    ``_automaton_pieces`` step (:func:`_plain_step`) over the window, one
+    position at a time, every carry in its JAX type (uint8 depth, matched,
+    key_pos and cap_depth wrap; elem_count, start and end are int32)."""
+    _check_chars(ch)
+    segs = tuple(segs)
+    t = _plain_tables(segs, max_key_len, ch.device)
+    n, W = ch.shape
+    c = _plain_carry0(n, ch.device)
     chT = ch.T.contiguous()
     for pos in range(W):
+        c = _plain_step(c, chT[pos], pos, t)
+    return torch.stack([c.start, c.end, c.found.to(torch.int32),
+                        c.capturing.to(torch.int32), c.bad.to(torch.int32),
+                        c.deep.to(torch.int32)])
+
+
+# K9 loads its rows in chunks of this many chars and skips quiet runs inside
+# a chunk (csrc/gjo_scan.cu)
+GJO_CHUNK = 16
+
+
+def _quiet_chars(c: _Carry, x: torch.Tensor, t: _PathTables) -> torch.Tensor:
+    """bool ``[n]``: whether K9 skips char ``x`` under carry ``c``, a torch
+    mirror of the kernel's ``quiet_in_string``, ``quiet_settled`` and
+    ``chunk_stops``: in a string with no escape, key or pending value
+    pending, any char but ``"`` and ``\\``; settled outside a string (no
+    escape, pending value or expected key, and not an element pending at an
+    index segment's frontier), any char but ``"`` ``,`` ``:`` and those
+    with ``(x | 0x26) == 0x7F`` (``[ ] { }`` and ``Y _ y`` DEL).  Chars in
+    a window's last ``W % 16`` are stepped whatever this says."""
+    in_string = c.in_str & ~c.esc & ~c.in_key & ~c.pending
+    cur_idx = t.isidx[c.matched.clamp(max=t.last).long()]
+    elem_frontier = c.elem_pending & cur_idx & (c.depth == c.matched + 1)
+    settled = (~c.in_str & ~c.esc & ~c.pending & ~c.expect_key
+               & ~elem_frontier)
+    quote = x == ord('"')
+    str_stop = quote | (x == ord("\\"))
+    out_stop = (quote | (x == ord(",")) | (x == ord(":"))
+                | ((x | 0x26) == 0x7F))
+    return (in_string & ~str_stop) | (settled & ~out_stop)
+
+
+def gjo_scan_walk(ch: torch.Tensor, segs, max_key_len: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`gjo_scan_plain` with K9's walk replayed beside it, with torch
+    ops over the plain carry: the plain version's int32 ``[6, n]``, then
+    per row the chars the kernel skips and the iterations of its loop
+    (int64 ``[n]`` each).  An iteration steps one char, or skips a quiet run
+    to its chunk's end; so the iterations are the stepped chars plus the
+    chunks whose last char is skipped."""
+    _check_chars(ch)
+    segs = tuple(segs)
+    t = _plain_tables(segs, max_key_len, ch.device)
+    n, W = ch.shape
+    whole = W - W % GJO_CHUNK
+    c = _plain_carry0(n, ch.device)
+    chT = ch.T.contiguous()
+    skipped = torch.zeros(n, dtype=torch.int64, device=ch.device)
+    ends_quiet = torch.zeros_like(skipped)
+    for pos in range(W):
         x = chT[pos]
-        is_q = x == ord('"')
-        is_bs = x == ord("\\")
-        is_ws = (x == 32) | (x == 9) | (x == 10) | (x == 13)
-        is_open = (x == ord("{")) | (x == ord("["))
-        is_close = (x == ord("}")) | (x == ord("]"))
-        is_colon = x == ord(":")
-        is_comma = x == ord(",")
-
-        eff_q = is_q & ~esc
-        new_in_str = in_str ^ eff_q
-        new_esc = in_str & ~esc & is_bs
-        outside = ~in_str
-        opens = outside & is_open
-        new_deep = deep | (opens & (depth >= 250))
-        new_depth = (depth + (opens & (depth < 250)).to(torch.uint8)
-                     - (outside & is_close).to(torch.uint8))
-        at_frontier = depth == matched + 1
-
-        # key scanning at the frontier
-        key_opening = (outside & eff_q & expect_key & ~in_key & ~await_colon
-                       & ~capturing & ~found & at_frontier)
-        key_char = in_key & in_str & ~eff_q
-        seg_idx = seg(matched)
-        expect = keys_t[seg_idx, key_pos.clamp(max=max_key_len - 1).long()]
-        this_len = lens_t[seg_idx]
-        ok_char = key_char & (key_pos < this_len) & (x == expect) & ~esc
-        new_key_ok = key_ok & (~key_char | ok_char)
-        new_key_pos = torch.where(key_char, key_pos + 1, key_pos)
-        key_closing = in_key & eff_q & in_str
-        full_match = key_closing & new_key_ok & (new_key_pos == this_len)
-        new_await = torch.where(key_closing, full_match, await_colon)
-        new_in_key = (in_key | key_opening) & ~key_closing
-        new_key_pos = torch.where(key_opening, z8, new_key_pos)
-        new_key_ok = new_key_ok | key_opening
-
-        # value entry after a matched key's colon
-        saw_colon = await_colon & outside & is_colon
-        new_await = new_await & ~saw_colon
-        new_pending = pending | saw_colon
-        key_value_starts = new_pending & ~is_ws & ~saw_colon
-
-        # element entry at an index segment's frontier array
-        fr_is_idx = isidx_t[seg_idx]
-        live = ~capturing & ~found
-        elem_value_starts = (elem_pending & fr_is_idx & outside & ~is_ws
-                             & ~is_comma & ~is_close & at_frontier & live)
-        value_starts = key_value_starts | elem_value_starts
-
-        is_last = matched == last
-        next_is_idx = isidx_t[seg(matched + 1)]
-        expected_open = torch.where(next_is_idx, ord("["), ord("{")) \
-            .to(torch.uint8)
-        descend = value_starts & ~is_last & (x == expected_open) & live
-        deadend = value_starts & ~is_last & (x != expected_open) & live
-        start_cap = value_starts & is_last & live
-        new_matched = matched + descend.to(torch.uint8)
-        exhausted = (outside & is_close & ~capturing & (matched > 0)
-                     & (new_depth == matched) & ~found)
-        new_pending = new_pending & ~(value_starts | deadend)
-        new_bad = bad | deadend | exhausted
-
-        # the element counter: commas at the frontier array's depth
-        elem_comma = outside & is_comma & fr_is_idx & at_frontier & live
-        new_count = elem_count + elem_comma.to(torch.int32)
-        new_elem_pending = torch.where(
-            elem_comma, new_count == tgt_t[seg_idx],
-            elem_pending & ~elem_value_starts)
-
-        # key position for the (possibly new) frontier
-        new_frontier = new_matched + 1
-        new_seg = seg(new_matched)
-        new_fr_idx = isidx_t[new_seg]
-        opens_frontier = (outside & (x == ord("{"))
-                          & (new_depth == new_frontier) & ~new_fr_idx)
-        comma_frontier = (outside & is_comma & (depth == new_frontier)
-                          & ~capturing & ~new_fr_idx)
-        clears_key_pos = ~is_ws & outside & ~eff_q & ~is_open & ~is_comma
-        new_expect_key = (opens_frontier | comma_frontier
-                          | (expect_key & ~(key_opening | clears_key_pos)))
-
-        # entering the frontier array arms the element counter
-        arr_open = (outside & (x == ord("[")) & new_fr_idx
-                    & (new_depth == new_frontier) & live)
-        new_count = torch.where(arr_open, zi, new_count)
-        new_elem_pending = torch.where(arr_open, tgt_t[new_seg] == 0,
-                                       new_elem_pending)
-
-        # capture start and end
-        new_start = torch.where(start_cap, zi + pos, start)
-        new_cap_depth = torch.where(start_cap, depth, cap_depth)
-        new_cap_is_str = torch.where(start_cap, is_q, cap_is_str)
-        new_capturing = capturing | start_cap
-        started = new_capturing & (new_start >= 0) & ~found
-        cont_end = (started & outside & is_close
-                    & (new_depth == new_cap_depth) & (pos > new_start))
-        scalar_term = (started & ~new_cap_is_str & outside
-                       & (is_comma | is_close) & (depth == new_cap_depth)
-                       & (pos > new_start))
-        str_end = (started & new_cap_is_str & eff_q & in_str
-                   & (pos > new_start))
-        ends_now = cont_end | scalar_term | str_end
-        end_pos = (zi + pos + 1) - (scalar_term & ~cont_end
-                                    & ~str_end).to(torch.int32)
-        end = torch.where(ends_now, end_pos, end)
-        found = found | ends_now
-        capturing = new_capturing & ~ends_now
-
-        in_str, esc, depth, deep = new_in_str, new_esc, new_depth, new_deep
-        matched, in_key, key_pos = new_matched, new_in_key, new_key_pos
-        key_ok, await_colon, pending = new_key_ok, new_await, new_pending
-        bad, elem_count, elem_pending = new_bad, new_count, new_elem_pending
-        expect_key, start = new_expect_key, new_start
-        cap_depth, cap_is_str = new_cap_depth, new_cap_is_str
-    return torch.stack([start, end, found.to(torch.int32),
-                        capturing.to(torch.int32), bad.to(torch.int32),
-                        deep.to(torch.int32)])
+        if pos < whole:
+            quiet = _quiet_chars(c, x, t)
+            skipped += quiet
+            if pos % GJO_CHUNK == GJO_CHUNK - 1:
+                ends_quiet += quiet
+        c = _plain_step(c, x, pos, t)
+    fields = torch.stack([c.start, c.end, c.found.to(torch.int32),
+                          c.capturing.to(torch.int32), c.bad.to(torch.int32),
+                          c.deep.to(torch.int32)])
+    return fields, skipped, W - skipped + ends_quiet
 
 
 @functools.lru_cache(maxsize=64)

@@ -236,6 +236,32 @@ def encode_byte_map(layout: RowLayout) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
+def encode_word_map(layout: RowLayout) -> np.ndarray:
+    """int16 ``[row_size // 4]``: for each 4-byte row word, the plane word
+    ``w`` it copies whole, bytes 0 to 3 in order (>= 0), zero (-1), or mixed
+    (-2): its bytes come one by one from :func:`encode_byte_map` (plane
+    bytes, validity bytes or zero)."""
+    m = encode_byte_map(layout).reshape(-1, 4).astype(np.int32)
+    whole = (m[:, 0] % 4 == 0) & (m == m[:, :1] + np.arange(4)).all(1)
+    whole &= m[:, 0] >= 0
+    out = np.full(len(m), -2, np.int16)
+    out[whole] = m[whole, 0] // 4
+    out[(m == -1).all(1)] = -1
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _encode_maps(layout: RowLayout) -> np.ndarray:
+    """K1's maps, int16 ``[row_size + row_size // 4]``: the byte map with
+    each validity byte ``v`` as byte ``4 * Wd + v`` of the kernel's tile row
+    (where it puts them), then :func:`encode_word_map`."""
+    b = encode_byte_map(layout).copy()
+    val = b <= -2
+    b[val] = 4 * word_plan._data_words(layout) + (-2 - b[val])
+    return np.concatenate([b, encode_word_map(layout)])
+
+
+@functools.lru_cache(maxsize=64)
 def decode_word_map(layout: RowLayout) -> np.ndarray:
     """int16 ``[4 * W]``: for byte ``k`` of plane word ``w`` (index
     ``4 * w + k``), its source row byte or -1, from the inverse plan."""
@@ -326,10 +352,10 @@ def grouped_encode(planes: torch.Tensor, vmask: torch.Tensor,
     rs = layout.fixed_row_size
     out = torch.empty((size, rs), dtype=torch.uint8, device=planes.device)
     if size:
-        byte_map = _device_map(encode_byte_map, layout, planes.device)
+        maps = _device_map(_encode_maps, layout, planes.device)
         launch("grouped_encode",
                planes.data_ptr(), planes.shape[1], vmask.data_ptr(),
-               vmask.shape[1], byte_map.data_ptr(),
+               vmask.shape[1], maps.data_ptr(),
                word_plan._data_words(layout), layout.num_columns,
                layout.validity_bytes, rs, start, size, out.data_ptr(),
                planes.device.index, stream_of(planes.device))

@@ -1,6 +1,7 @@
 """Utilities of the PyTorch port."""
 
 from spark_rapids_jni_tpu_torch.utils.datagen import (  # noqa: F401
-    cycle_dtypes, json_event_docs, random_bitset, random_strings,
-    random_table, special_floats, strings_with_lengths,
+    cycle_dtypes, json_boundary_docs, json_event_docs, json_window,
+    random_bitset, random_strings, random_table, special_floats,
+    strings_with_lengths,
 )

@@ -1,7 +1,9 @@
 """Seeded random tables (fixed-width and dense-padded string columns), made
 on the device, the edge data the hash kernels are checked on (special
 floats, random bloom bitsets), and event-log JSON documents for
-``get_json_object`` (:func:`json_event_docs`, made on the host).
+``get_json_object`` (:func:`json_event_docs`, made on the host), with
+documents built on the get_json kernel's chunk boundaries
+(:func:`json_boundary_docs`) and their char window (:func:`json_window`).
 
 The schema helper ``cycle_dtypes`` follows the reference benchmark datagen
 (``generate_input.hpp:445-452``).  Values are uniform random bytes, so float
@@ -209,3 +211,99 @@ def json_event_docs(num_rows: int, *, seed: int = 0, special: float = 0.01,
             doc = re.sub(r'"(\w+)":', r"\1:", doc)
         docs.append(doc)
     return docs, kinds
+
+
+# the first key of each path the boundary documents serve, with a value
+# under which that path goes on: $.a, $.user.id, $.items[2].sku,
+# $.p.q[1].r.s[0][1].t and a 254-byte key
+_BOUNDARY_VALUES = (
+    (b"a", b"12"), (b"user", b'{"id": "u-7"}'),
+    (b"items", b'[{"sku": "s0"}, {"sku": "s1"}, {"sku": "s2"}]'),
+    (b"p", b'{"q": [0, {"r": {"s": [[1, {"t": 7}]]}}]}'),
+    (b"k" * 254, b"[1, 2]"),
+)
+
+
+def json_boundary_docs(width: int) -> list:
+    """JSON documents (bytes) built so that the chars the get_json
+    automaton must step sit on the 16-char chunk boundaries of its kernel
+    (K9), for a window of ``width`` chars (cut there): for every boundary
+    ``b`` in 16, 32, ``width - 16`` and ``width`` (and the char just before
+    and after it), a string's closing ``"``, a ``\\`` escape, a key's
+    opening ``"`` (of each path's first key, so that the paths descend past
+    it) and a value's opening ``"``; runs of 1 to 4 backslashes across a
+    boundary, each before a ``"`` and before another char; ``{`` and an
+    index frontier's commas before spaces across a boundary; a char that
+    is not a key's quote where a key is expected; windows cut inside a
+    string, a key, after a colon (or with the colon just before a boundary
+    and zeros after it) and inside a scalar; 300 opens before the zeros;
+    NUL bytes in a string and in a key."""
+    docs = []
+    spots = sorted({p for b in (16, 32, width - 16, width)
+                    for p in (b - 1, b, b + 1) if 0 < p < width})
+
+    def pad(head: bytes, at: int, fill: bytes = b" ") -> bytes:
+        # head, then fill up to position `at` (where the next byte lands)
+        return head + fill * (at - len(head))
+
+    for p in spots:
+        if p >= 8:
+            # a string value's closing quote, and a backslash, at p
+            docs.append(pad(b'{"a": "', p, b"n") + b'", "b": 1}')
+            docs.append(pad(b'{"a": "', p, b"n") + b'\\"q", "a": 2}')
+            docs.append(pad(b'{"n": "', p, b"n") + b'\\\\", "a": 3}')
+            # a value's opening quote at p
+            docs.append(pad(b'{"a":', p) + b'"v", "b": 1}')
+        if p >= 9:
+            # a key's opening quote at p, for each path's first key
+            for key, value in _BOUNDARY_VALUES:
+                docs.append(pad(b'{"x": 0,', p) + b'"' + key + b'": '
+                            + value + b"}")
+        # the colon at p - 1, then the zeros (a value pending at the end)
+        if p >= 5:
+            docs.append(pad(b'{"a"', p - 1) + b":")
+            docs.append(pad(b'{"items": [0, 1,', p))
+        # { at p - 1 (a key expected) and spaces to the next boundary; a
+        # char at p that is no key's quote, after a { or a comma (it
+        # clears the expected key)
+        if p >= 2:
+            docs.append(pad(b"{", p - 1, b" ") + b"{" + b" " * 20
+                        + b'"a": 5}')
+            docs.append(pad(b"{", p) + b'z"a": 5}')
+        if p >= 9:
+            docs.append(pad(b'{"x": 0,', p) + b'z "a": 6}')
+        # an index frontier's second comma at p - 1, spaces after it
+        if p >= 14:
+            docs.append(pad(b'{"items": [0,', p - 1) + b"," + b" " * 20
+                        + b'{"sku": "s"}]}')
+    for b in (16, 32, width - 16):
+        for run in range(1, 5):
+            for first in range(b - run, b + 1):
+                if first < 8:
+                    continue
+                head = pad(b'{"a": "', first, b"n") + b"\\" * run
+                docs.append(head + b'", "a": 4}')
+                docs.append(head + b'n", "a": 5}')
+    # windows cut inside a string, a key, after a colon, inside a scalar
+    docs += [b'{"a": "' + b"n" * width, b'{"x": 1, "' + b"a" * width,
+             pad(b'{"x": 1,', width - 4) + b'"a":',
+             pad(b'{"x": 1,', width - 3) + b'"a":',
+             b'{"a": ' + b"1" * width, b'{"a": -' + b"9" * width]
+    # 300 opens, then the zeros; NUL bytes in a string and in a key
+    docs += [b"[" * 300, b'{"a": ' + b"[" * 300,
+             b'{"a": 1, "z": ' + b"{" * 300,
+             b'{"a": "x\x00y", "b": 1}',
+             pad(b'{"n": "', 14, b"n") + b"\x00" * 20 + b'", "a": 6}',
+             b'{"a\x00": 1, "a": 7}']
+    return [d[:width] for d in docs]
+
+
+def json_window(docs: Sequence[bytes], width: int, *,
+                device=None) -> torch.Tensor:
+    """uint8 ``[len(docs), width]`` on ``device``: each document's bytes cut
+    at ``width``, zeros after them."""
+    mat = np.zeros((len(docs), width), np.uint8)
+    for i, d in enumerate(docs):
+        d = d[:width]
+        mat[i, :len(d)] = np.frombuffer(d, np.uint8)
+    return torch.from_numpy(mat).to(resolve_device(device))

@@ -25,8 +25,8 @@ from spark_rapids_jni_tpu_torch.table import (
     assert_tables_equivalent, bits_view, pack_bools, valid_bits,
 )
 from spark_rapids_jni_tpu_torch.utils import (
-    cycle_dtypes, json_event_docs, random_bitset, random_table,
-    special_floats, strings_with_lengths,
+    cycle_dtypes, json_boundary_docs, json_event_docs, json_window,
+    random_bitset, random_table, special_floats, strings_with_lengths,
 )
 
 ALL_FIXED = [INT64, FLOAT64, UINT64, INT32, UINT32, FLOAT32, INT16, UINT16,
@@ -84,7 +84,9 @@ def test_kernels_match_plain_versions(cuda, schema, n):
         t = random_table(dtypes, n, seed=n, null_probability=nulls,
                          device=cuda)
         gc = row_mxu.table_to_grouped(t, layout)
-        for start in sorted({0, min(5, n - 1), n // 3}):
+        for start in sorted({0, 1, 7, 33, min(5, n - 1), n // 3}):
+            if start >= n:
+                continue
             k = kernels.grouped_encode(gc.planes, gc.vmask, layout, start,
                                        n - start)
             p = kernels.grouped_encode_plain(gc.planes, gc.vmask, layout,
@@ -103,6 +105,38 @@ def test_kernels_match_plain_versions(cuda, schema, n):
         back = prc.convert_from_rows(prc.RowsColumn(rows, offsets), dtypes,
                                      device=cuda)
         assert_tables_equivalent(t, back, check_nulls=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schema", ["wide212", "all_fixed", "odd_int16"])
+def test_grouped_encode_into_an_8_byte_aligned_out(cuda, schema):
+    """K1's C entry point writing a batch into a larger blob at an offset
+    that is 8-byte but not 16-byte aligned (its 8-byte stores), at starts
+    that are not multiples of 8; the bytes around the batch stay as they
+    were."""
+    dtypes = SCHEMAS[schema]
+    layout = compute_row_layout(dtypes)
+    rs = layout.fixed_row_size
+    n = 1000
+    t = random_table(dtypes, n, seed=9, null_probability=0.25, device=cuda)
+    gc = row_mxu.table_to_grouped(t, layout)
+    maps = kernels._device_map(kernels._encode_maps, layout, cuda)
+    for start in (1, 7, 33):
+        size = n - start
+        blob = torch.full((size * rs + 64,), 0xA5, dtype=torch.uint8,
+                          device=cuda)
+        at = 24 - blob.data_ptr() % 16
+        kernels.launch("grouped_encode", gc.planes.data_ptr(), n,
+                       gc.vmask.data_ptr(), gc.vmask.shape[1],
+                       maps.data_ptr(), row_mxu._data_words(layout),
+                       layout.num_columns, layout.validity_bytes, rs, start,
+                       size, blob.data_ptr() + at, cuda.index or 0,
+                       kernels.stream_of(cuda))
+        want = kernels.grouped_encode_plain(gc.planes, gc.vmask, layout,
+                                            start, size)
+        assert torch.equal(blob[at:at + size * rs].view(size, rs), want)
+        assert bool((blob[:at] == 0xA5).all())
+        assert bool((blob[at + size * rs:] == 0xA5).all())
 
 
 @pytest.mark.gpu
@@ -126,7 +160,7 @@ def test_launches_count_kernel_runs_only(cuda):
     hk.murmur3_cols_plain(t.columns, 42)
     hk.xxhash64_cols_plain(t.columns, 42)
     hk.bloom_might_contain_plain(words, t.columns[0], 3)
-    ch = _gjo_window([b'{"a": 1}'] * 5, 12, cuda)
+    ch = json_window([b'{"a": 1}'] * 5, 12, device=cuda)
     assert torch.equal(gj.gjo_scan(ch, (b"a",), 1),
                        gj.gjo_scan_plain(ch, (b"a",), 1))
     assert gj.gjo_scan(ch[:0], (b"a",), 1).shape == (6, 0)
@@ -309,32 +343,27 @@ _GJO_PATHS = ["$.a", "$.items[2].sku", "$.p.q[1].r.s[0][1].t",
               "$." + "k" * 254]
 
 
-def _gjo_window(docs, W, device):
-    """uint8 [n, W] on ``device``: each document's bytes cut at W, zeros
-    past them."""
-    ch = torch.zeros((len(docs), W), dtype=torch.uint8)
-    for i, d in enumerate(docs):
-        b = d[:W]
-        if b:
-            ch[i, :len(b)] = torch.frombuffer(bytearray(b), dtype=torch.uint8)
-    return ch.to(device)
-
-
 def _gjo_docs(n, W, seed):
+    """n documents: event logs and the edge documents, then (for W up to
+    4096) the documents whose stepped chars sit on K9's 16-char chunk
+    boundaries."""
     docs, _ = json_event_docs(n - len(_GJO_EDGE_DOCS), seed=seed,
                               special=0.05, lengths=(min(100, W), W))
+    boundary = json_boundary_docs(W) if W <= 4096 else []
     return [b"" if d is None else d.encode() for d in docs] + \
-        _GJO_EDGE_DOCS
+        _GJO_EDGE_DOCS + boundary
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("W", [4, 36, 4096, 40_000])
+@pytest.mark.parametrize("W", [4, 36, 1024, 4096, 40_000])
 def test_gjo_scan_matches_plain_version(cuda, W):
-    """K9 against its plain version: rows not a multiple of the block, a
-    window past the JAX package's 32 KiB VMEM limit, paths of 1 to 8
-    segments, a 254-byte key, an unaligned pitch, zero rows."""
+    """K9 against its plain version: rows not a multiple of the block, the
+    chunk-boundary documents, a window past the JAX package's 32 KiB VMEM
+    limit, paths of 1 to 8 segments, a 254-byte key, unaligned pitches,
+    zero rows."""
     n = 131 if W > 4096 else 389
-    ch = _gjo_window(_gjo_docs(n, W, seed=W), W, cuda)
+    ch = json_window(_gjo_docs(n, W, seed=W), W, device=cuda)
+    n = ch.shape[0]
     # the plain version steps through the window with torch ops: past 4096
     # chars it runs on the CPU, where each op costs less
     plain_ch = ch.cpu() if W > 4096 else ch
@@ -344,13 +373,16 @@ def test_gjo_scan_matches_plain_version(cuda, W):
         got = gj.gjo_scan(ch, segs, mkl)
         want = gj.gjo_scan_plain(plain_ch, segs, mkl)
         assert torch.equal(got.cpu(), want.cpu()), path
-    if W <= 36:
-        # rows 1 byte apart: the kernel reads them byte by byte
-        buf = torch.zeros(n * (W + 1), dtype=torch.uint8, device=cuda)
-        odd = buf.view(n, W + 1)[:, :W]
-        odd.copy_(ch)
-        assert torch.equal(gj.gjo_scan(odd, (b"a",), 1),
-                           gj.gjo_scan_plain(odd, (b"a",), 1))
+    if W <= 1024:
+        # rows 1 and 4 bytes apart: the kernel loads its chunks byte by
+        # byte and word by word
+        for extra in (1, 4):
+            buf = torch.zeros(n * (W + extra), dtype=torch.uint8,
+                              device=cuda)
+            odd = buf.view(n, W + extra)[:, :W]
+            odd.copy_(ch)
+            assert torch.equal(gj.gjo_scan(odd, (b"a",), 1),
+                               gj.gjo_scan_plain(odd, (b"a",), 1)), extra
     kernels.reset_launches()
     assert gj.gjo_scan(ch[:0], (b"a",), 1).shape == (6, 0)
     assert kernels.launches["gjo_scan"] == 0
