@@ -15,8 +15,11 @@ launch count set to 0 just before the path and read just after:
 - ``xxhash64`` and ``murmur3_hash`` over 8 INT64 key columns, and over a
   padded string column (lengths 0..64) and an INT64 column, at 4M rows;
 - the bloom probe ``might_contain_device`` of 4M INT64 rows against Spark's
-  runtime-filter defaults: 8,388,608 bits with 1M build keys, and the
-  67,108,864-bit maximum with 4M build keys, built on the host;
+  runtime-filter defaults: 8,388,608 bits with 1M build keys, the
+  67,108,864-bit maximum with 4M build keys, and the 729,856 bits of a
+  100,000-item filter, built on the host; each filter also by both of the
+  kernel's routes where it fits a block, timed side by side, and the
+  routes over a sweep of filter sizes;
 - dense-padded string row conversion at the reference's mixed axis (130
   fixed-width columns and 25 STRING columns of lengths 0..32, 1% nulls):
   1M rows (one 1624-byte-row batch, decoded by one K2 launch at that
@@ -120,8 +123,16 @@ N_WIDE_STRINGS, W_WIDE_STRINGS = 24_000_000, 96
 # Spark's spark.sql.shuffle.partitions default
 NUM_PARTITIONS = 200
 # Spark's runtime bloom filter: (numBits, expectedNumItems) of the default
-# filter and of the maximum, spark.sql.optimizer.runtime.bloomFilter.*
-BLOOM_FILTERS = ((8_388_608, 1_000_000), (67_108_864, 4_000_000))
+# filter and of the maximum, spark.sql.optimizer.runtime.bloomFilter.*, and
+# of BloomFilter.create(100_000) (a small join side: 729,856 bits, k = 5)
+BLOOM_FILTERS = ((8_388_608, 1_000_000), (67_108_864, 4_000_000),
+                 (729_856, 100_000))
+# filter sizes in long words at which K8's routes are timed beside each
+# other (k = 6, the 4M probe rows): a small filter, the 100,000-item one,
+# and both sides of the block route's threshold
+BLOOM_SWEEP_WORDS = (1_024, 11_404, 16_384, 16_385)
+# one L2 sector: what a probe of the bitset in device memory moves
+L2_SECTOR_BYTES = 32
 TIMED_RUNS = 15
 # the card every tensor of the script lies on
 CARD = "cuda"
@@ -398,10 +409,16 @@ def _hash_timings(cols, label: str, out: dict):
         lambda: hk.murmur3_cols(cols, 42),
         lambda: hk.murmur3_cols_plain(cols, 42),
         _bound(nbytes + 4 * n, sum(_mm3_ops(c) for c in cols)), n)
-    out[f"xxhash64_cols{label}"] = _timed(
-        lambda: hk.xxhash64_cols(cols, 42),
-        lambda: hk.xxhash64_cols_plain(cols, 42),
-        _bound(nbytes + 8 * n, sum(_xx_ops(c) for c in cols)), n)
+    plan = hk._xx_stage_plan(cols)
+    out[f"xxhash64_cols{label}"] = {
+        **_timed(lambda: hk.xxhash64_cols(cols, 42),
+                 lambda: hk.xxhash64_cols_plain(cols, 42),
+                 _bound(nbytes + 8 * n, sum(_xx_ops(c) for c in cols)), n),
+        "plan": {"tile_rows": plan.tile_rows,
+                 "rows_per_thread": plan.rows_per_thread,
+                 "groups": len(plan.groups),
+                 "stage_bytes": plan.stage_bytes,
+                 "staged_columns": sum(s is not None for s in plan.slots)}}
 
 
 # ---------------------------------------------------------------------------
@@ -513,6 +530,7 @@ def phase_hash_strings(errs, timing):
     from spark_rapids_jni_tpu_torch.ops import (
         DEFAULT_SEED, kernels, murmur3_hash, xxhash64,
     )
+    from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
     from spark_rapids_jni_tpu_torch.utils import random_strings, random_table
     cols = [random_strings(N_4M, 64, seed=4, null_probability=0.25),
             random_table([INT64], N_4M, seed=5).columns[0]]
@@ -526,6 +544,20 @@ def phase_hash_strings(errs, timing):
         _hold_hash(name, got, cols, DEFAULT_SEED, errs,
                    "path 3, strings + INT64")
     _hash_timings(cols, "_strings", timing)
+    # K7 with the string read in place (a plan whose budget stages the
+    # INT64 column only) beside the staged string of its own plan
+    plan = hk._xx_stage_plan(cols)
+    # the INT64 column's slot is the size of the string's block before it
+    direct = hk._xx_stage_plan(cols, budget=plan.slots[1] - 1)
+    check(plan.slots[0] is not None and direct.slots[0] is None
+          and direct.slots[1] is not None, f"plans {plan} {direct}")
+    out = torch.empty(N_4M, dtype=torch.int64, device=CARD)
+    hk._launch_hash("xxhash64_cols", cols, DEFAULT_SEED, out, direct)
+    _hold_hash("xxhash64_cols", out, cols, DEFAULT_SEED, errs,
+               "path 3, the string read in place")
+    timing["xxhash64_cols_strings"]["direct_string_ms"] = median_ms(
+        lambda: hk._launch_hash("xxhash64_cols", cols, 42, out, direct),
+        flush=True)
     emit(phase="hash_strings_4m", rows=N_4M, width=cols[0].chars2d.shape[1],
          bytes_at_or_above_0x80=high, launches=launches, equal_plain=True)
     return launches
@@ -563,9 +595,51 @@ def _hold_probe(bf, col, got, errs, what):
     return words
 
 
+def _route_name(route: int) -> str:
+    return ("l2", "block")[route]
+
+
+def _hold_routes(words, col, k, errs, what) -> dict:
+    """K8 by every route it can take this filter by, forced through the
+    private launch, against the plain version; returns, by route name, a
+    call that launches it again (for timing)."""
+    from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
+    plain = hk.bloom_might_contain_plain(words, col, k)
+    out = torch.empty(col.num_rows, dtype=torch.bool, device=CARD)
+    runs = {}
+    for route in hk._bloom_routes(words.shape[0]):
+        hk._launch_bloom(words, col, k, route, out)
+        errs["bloom_might_contain"] = max(errs["bloom_might_contain"],
+                                          max_abs_err(out.to(torch.uint8),
+                                                      plain.to(torch.uint8)))
+        check(torch.equal(out, plain),
+              f"bloom route {route} != plain version: {what}")
+        runs[_route_name(route)] = (
+            lambda r=route: hk._launch_bloom(words, col, k, r, out))
+    return runs
+
+
+def _bloom_route_sweep(col, errs) -> dict:
+    """K8's routes timed beside each other at BLOOM_SWEEP_WORDS (k = 6,
+    random bitsets), each held against the plain version first."""
+    from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
+    from spark_rapids_jni_tpu_torch.utils import random_bitset
+    sweep = {}
+    for num_words in BLOOM_SWEEP_WORDS:
+        words = random_bitset(num_words, 0.5 ** (1 / 6), seed=num_words,
+                              device=CARD)
+        runs = _hold_routes(words, col, 6, errs, f"{num_words} words")
+        sweep[num_words] = {
+            "chosen": _route_name(hk._bloom_route(num_words)),
+            **{name: median_ms(fn, flush=True) for name, fn in runs.items()}}
+    return sweep
+
+
 def phase_bloom_probe(errs, timing):
     """Path 4: Spark's runtime filter, built on the host from distinct
-    INT64 keys, probed by 4M INT64 rows on the card."""
+    INT64 keys, probed by 4M INT64 rows on the card; each filter also by
+    every route K8 can take it by, and the routes timed beside each other
+    over a sweep of filter sizes."""
     from spark_rapids_jni_tpu_torch import INT64
     from spark_rapids_jni_tpu_torch.ops import (
         SparkBloomFilter, kernels, might_contain_device,
@@ -573,6 +647,10 @@ def phase_bloom_probe(errs, timing):
     from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
     from spark_rapids_jni_tpu_torch.table import Column
     total = {}
+    small = SparkBloomFilter.optimal(100_000)
+    check((small.num_bits, small.num_hash_functions) == (729_856, 5),
+          f"optimal(100_000) gave {small.num_bits} bits, "
+          f"k = {small.num_hash_functions}")
     for i, (num_bits, items) in enumerate(BLOOM_FILTERS):
         # Spark's optimalNumOfHashFunctions(expectedNumItems, numBits)
         k = max(1, round(num_bits / items * math.log(2)))
@@ -597,15 +675,27 @@ def phase_bloom_probe(errs, timing):
         others = torch.from_numpy(~from_build & valid).to(CARD)
         fpp = float(got[others].float().mean())
         label = "" if i == 0 else f"_{num_bits}_bits"
-        timing[f"bloom_might_contain{label}"] = _timed(
-            lambda: hk.bloom_might_contain(words, col, k),
-            lambda: hk.bloom_might_contain_plain(words, col, k),
-            _bound(_col_bytes(col) + N_4M + 8 * len(bf.words),
-                   _bloom_ops(col, k)), N_4M)
+        routes = _hold_routes(words, col, k, errs, f"{num_bits} bits")
+        tm = _timed(lambda: hk.bloom_might_contain(words, col, k),
+                    lambda: hk.bloom_might_contain_plain(words, col, k),
+                    _bound(_col_bytes(col) + N_4M + 8 * len(bf.words),
+                           _bloom_ops(col, k)), N_4M)
+        # diagnostic, not the bound: the L2 sectors the probes would move
+        # with the bitset in device memory, and the rate that implies
+        sectors = _valid_count(col) * k * L2_SECTOR_BYTES
+        tm.update(route=_route_name(hk._bloom_route(len(bf.words))),
+                  route_ms={name: median_ms(fn, flush=True)
+                            for name, fn in routes.items()},
+                  probe_sector_bytes=sectors,
+                  probe_sector_rate_tb_s=sectors / tm["ms"] / 1e9)
+        timing[f"bloom_might_contain{label}"] = tm
         emit(phase="bloom_probe_4m", rows=N_4M, num_bits=num_bits, k=k,
              build_keys=items, put_seconds=put_s, launches=launches,
              equal_plain=True, equal_host=True, build_keys_all_true=True,
-             nulls_false=True, false_positive_rate=fpp)
+             nulls_false=True, false_positive_rate=fpp, route=tm["route"],
+             route_ms=tm["route_ms"])
+    emit(phase="bloom_route_sweep", rows=N_4M, k=6,
+         ms=_bloom_route_sweep(col, errs))
     return total
 
 
@@ -689,12 +779,41 @@ def phase_hash_edges(errs):
                     check(not bool(got[~col.valid_bools()].any()),
                           "a null row probed True")
                     cases += 1
+    # K8 by both routes on both sides of the block route's threshold
+    n = 6 * 1024 + 557
+    S = hk._BLOOM_BLOCK_WORDS
+    route_cases = 0
+    for num_words in (1, S, S + 1):
+        for k in (1, 5, 12):
+            words = random_bitset(num_words, 0.5 ** (1 / k), seed=k)
+            for col in random_table([INT8, INT64], n, seed=k,
+                                    null_probability=0.25).columns:
+                route_cases += len(_hold_routes(
+                    words, col, k, errs,
+                    f"{num_words} words, k={k}, {col.dtype}"))
+    # K7 (and K6) over views whose values, lengths, chars or masks start
+    # inside a 16-byte chunk, with strings on both sides of the staging
+    # limit (pitch 120 staged, 124 read in place)
+    from spark_rapids_jni_tpu_torch.table import (
+        Table, slice_table, slice_table_dynamic,
+    )
+    t = random_table(fixed, n + 11, seed=5, null_probability=0.25)
+    strings = [strings_with_lengths(
+        (torch.arange(n + 11, device=CARD) * 7 % (W + 1)).to(torch.int32),
+        W, seed=W, null_probability=0.25) for W in (12, 68, 120, 124)]
+    whole = Table(tuple(t.columns) + tuple(strings))
+    for cols in (slice_table(whole, 3, n + 3).columns,
+                 slice_table_dynamic(whole, 8, n).columns):
+        slots = hk._xx_stage_plan(cols).slots
+        check(slots[-2] is not None and slots[-1] is None,
+              f"pitch 120 not staged or 124 staged: {slots[-2:]}")
+        _hold_hashes(list(cols), 42, errs, "views at odd offsets")
+        cases += 2
     # chains past MAX_HASH_COLS columns: ceil(ncols / 800) launches, each
     # seeded per row by the previous one's hashes; a string column in the
     # first and in the last launch
     from spark_rapids_jni_tpu_torch.ops import kernels
     from spark_rapids_jni_tpu_torch.utils import cycle_dtypes
-    n = 6 * 1024 + 557
     chains = {}
     for ncols in (801, 1600):
         t = random_table(cycle_dtypes(fixed, ncols - 2), n, seed=ncols,
@@ -712,8 +831,8 @@ def phase_hash_edges(errs):
                   f"{name} over {ncols} columns: {kernels.launches}")
             _hold_hash(name, got, cols, 42, errs, f"{ncols}-column chain")
             cases += 1
-    emit(phase="hash_edges", cases=cases, chain_launches=chains,
-         equal_plain=True)
+    emit(phase="hash_edges", cases=cases, bloom_route_cases=route_cases,
+         chain_launches=chains, equal_plain=True)
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,8 @@ struct SrjHashCol {
   const int32_t* lens;   // string lengths [n]; null for fixed width
   int64_t pitch;         // string row pitch in bytes (a multiple of 4)
   int32_t type;          // SrjHashType
-  int32_t unused;
+  int32_t stage;         // xxhash64's staging plan (xxhash64.cu); 0 for
+                         // murmur3, which reads every column in place
 };
 
 // The descriptors of one hash launch, passed by value in the kernel's
@@ -59,8 +60,8 @@ constexpr int kHashThreads = 256;
 
 // Launches kernel(args...) over n rows, one thread a row in blocks of
 // kHashThreads, on `stream` of card `device`, and returns the launch's
-// cudaError_t (0, launching nothing, when n <= 0).  All three hash kernels
-// launch through it.
+// cudaError_t (0, launching nothing, when n <= 0).  murmur3 and the bloom
+// probe's L2 route launch through it.
 template <typename... Params, typename... Args>
 int srj_launch_rows(void (*kernel)(Params...), int64_t n, int device,
                     void* stream, Args... args) {
@@ -74,7 +75,7 @@ int srj_launch_rows(void (*kernel)(Params...), int64_t n, int device,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The C entry point of a column hash: copies the ncols host descriptors at
+// The C entry point of murmur3 (xxhash64.cu launches its own way): copies the ncols host descriptors at
 // `cols` into the kernel's parameters and launches, over n rows,
 // first(cols, n, seed, out) where row_seeds is null (a chain's first
 // launch: every row starts at seed), else chain(cols, n, row_seeds, out)

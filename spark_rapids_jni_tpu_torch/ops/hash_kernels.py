@@ -21,6 +21,17 @@ code.  A longer list chains through further launches, each starting every
 row from the hash the previous launch wrote: Spark's own chain, so the bits
 are those of one launch.
 
+Two plans, computed here in Python so that the CPU tests reach them, steer
+the kernels:
+
+- K7 stages tiles of rows in a ring of shared-memory stages, filled by bulk
+  copies while the last stage is hashed; :func:`_xx_stage_plan` fixes the
+  rows a tile, the column groups (one stage each, in chain order) and each
+  column's place in its stage, or that it is read from device memory.
+- K8 keeps the filter on chip where it fits: :func:`_bloom_route` picks,
+  from the filter's size alone, the block route (the whole bitset in each
+  block's shared memory) or the L2 route (the bitset in device memory).
+
 A wrapper runs the plain version only for columns on the CPU; on CUDA it
 launches its kernel or raises.  The plain versions follow the JAX package's
 chains (``hashing._murmur3_chain``, ``_xx64_chain``,
@@ -34,7 +45,8 @@ values that are not negative.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -65,7 +77,7 @@ class _ColDesc(ctypes.Structure):
     """csrc/hash_common.cuh's SrjHashCol."""
     _fields_ = [("data", ctypes.c_void_p), ("valid", ctypes.c_void_p),
                 ("lens", ctypes.c_void_p), ("pitch", ctypes.c_int64),
-                ("type", ctypes.c_int32), ("unused", ctypes.c_int32)]
+                ("type", ctypes.c_int32), ("stage", ctypes.c_int32)]
 
 
 def hash_cols_eligible(cols) -> bool:
@@ -361,6 +373,12 @@ def murmur3_cols_plain(cols: Sequence[Column], seed: int) -> torch.Tensor:
     return (h - ((h >> 31) << 32)).to(torch.int32)
 
 
+def _string_pitch(col: Column) -> int:
+    """A padded string column's row pitch in bytes as the kernels read it:
+    its chars' row stride, 0 at a zero width (no chars to read)."""
+    return col.chars2d.stride(0) if col.chars2d.shape[1] else 0
+
+
 def _descriptors(cols: Sequence[Column]) -> ctypes.Array:
     """One SrjHashCol per column, which the C entry point copies into the
     kernel's parameter space."""
@@ -371,12 +389,12 @@ def _descriptors(cols: Sequence[Column]) -> ctypes.Array:
         if c.dtype.is_string:
             ch = c.chars2d
             _check(c.lens.is_contiguous(), "lengths must be contiguous")
-            if ch.shape[1]:     # a zero width reads no chars: pitch 0
+            if ch.shape[1]:
                 _check(ch.stride(1) == 1 and ch.stride(0) % 4 == 0
                        and ch.data_ptr() % 4 == 0,
                        "padded chars must be 4-byte aligned rows of "
                        "contiguous bytes")
-                d.data, d.pitch = ch.data_ptr(), ch.stride(0)
+                d.data, d.pitch = ch.data_ptr(), _string_pitch(c)
             d.lens = c.lens.data_ptr()
         else:
             _check(c.data.is_contiguous(), "column data must be contiguous")
@@ -385,17 +403,25 @@ def _descriptors(cols: Sequence[Column]) -> ctypes.Array:
 
 
 def _launch_hash(name: str, cols: Sequence[Column], seed: int,
-                 out: torch.Tensor):
+                 out: torch.Tensor, plan: Optional["_XxPlan"] = None):
     """Launch kernel ``name`` over ``cols`` in chunks of
     :data:`MAX_HASH_COLS` columns: the first from ``seed``, each later one
-    from the hashes in ``out``, which it overwrites."""
+    from the hashes in ``out``, which it overwrites.  K7 takes its ``plan``
+    in the descriptors' stage fields and its tile rows and stage bytes."""
     dev = out.device
     for i in range(0, len(cols), MAX_HASH_COLS):
         chunk = cols[i:i + MAX_HASH_COLS]
         descs = _descriptors(chunk)
+        staging = ()
+        if plan is not None:
+            for d, field in zip(descs, plan.stage_fields(i, i + len(chunk))):
+                d.stage = field
+            staging = (plan.tile_rows, plan.rows_per_thread,
+                       plan.stage_bytes)
         kernels.launch(name, ctypes.addressof(descs), len(chunk),
                        out.shape[0], seed, None if i == 0 else out.data_ptr(),
-                       out.data_ptr(), dev.index, kernels.stream_of(dev))
+                       out.data_ptr(), *staging, dev.index,
+                       kernels.stream_of(dev))
 
 
 def _kernel_device(cols: Sequence[Column]) -> torch.device:
@@ -424,6 +450,104 @@ def murmur3_cols(cols: Sequence[Column], seed: int) -> torch.Tensor:
 # K7: xxhash64_cols
 # ---------------------------------------------------------------------------
 
+# K7's staging (csrc/xxhash64.cu): (rows a tile, rows a consumer thread)
+# for a fixed-width chain and for one with a staged string (whose byte loop
+# diverges: more threads, a row each, did better on the card); a tile's
+# rows are a multiple of 128, so that its mask bytes and values come in
+# 16-byte multiples.  The stages of a block's ring (its kXxStages) and the
+# most bytes a group's stage holds.
+_XX_TILES = {"fixed": (1024, 2), "strings": (256, 1)}
+_XX_STAGES = 3
+_XX_STAGE_BUDGET = 32 << 10
+# SrjHashCol::stage: set where a column starts a group; below it the
+# column's offset in its stage in 16-byte units plus one (0: not staged)
+_XX_GROUP_START = 1 << 24
+
+
+def _xx_region(nbytes: int) -> int:
+    """The room of a staged part of ``nbytes`` bytes: whole 16-byte chunks
+    and one more, since a bulk copy moves the aligned chunks that hold the
+    part, which may start inside its first chunk."""
+    return -(-nbytes // 16) * 16 + 16
+
+
+def _xx_regions(col: Column, rows: int) -> Dict[str, Tuple[int, int]]:
+    """(offset, room) of each part of a column's staged block for a tile
+    of ``rows`` rows: ``values`` (fixed width) or ``lens`` and ``chars`` (a
+    string; no chars at a zero width), then ``mask`` where the column has
+    one.  ``csrc/xxhash64.cu`` lays the block out the same way
+    (``xx_chars_off``, ``xx_mask_off``)."""
+    if col.dtype.is_string:
+        parts = [("lens", 4 * rows)]
+        if _string_pitch(col):
+            parts.append(("chars", rows * _string_pitch(col)))
+    else:
+        parts = [("values", rows * col.dtype.itemsize)]
+    if col.validity is not None:
+        parts.append(("mask", rows // 8))
+    regions, off = {}, 0
+    for name, nbytes in parts:
+        regions[name] = (off, _xx_region(nbytes))
+        off += _xx_region(nbytes)
+    return regions
+
+
+@dataclasses.dataclass(frozen=True)
+class _XxPlan:
+    """What K7 follows over a list of columns.  ``tile_rows`` rows a tile,
+    ``rows_per_thread`` of them a consumer thread; ``groups``: [start,
+    stop) column ranges in chain order, each hashed from one stage of at
+    most ``stage_bytes`` bytes, a new one at every launch of
+    :data:`MAX_HASH_COLS` columns; ``slots``: each column's byte offset in
+    its group's stage, None where the kernel reads it from device
+    memory."""
+    tile_rows: int
+    rows_per_thread: int
+    stage_bytes: int
+    groups: Tuple[Tuple[int, int], ...]
+    slots: Tuple[Optional[int], ...]
+
+    def stage_fields(self, start: int, stop: int) -> List[int]:
+        """The SrjHashCol::stage values of columns [start, stop)."""
+        firsts = {g for g, _ in self.groups}
+        return [(0 if self.slots[i] is None else self.slots[i] // 16 + 1)
+                | (_XX_GROUP_START if i in firsts else 0)
+                for i in range(start, stop)]
+
+
+def _xx_block_bytes(col: Column, rows: int) -> int:
+    return sum(room for _, room in _xx_regions(col, rows).values())
+
+
+def _xx_stage_plan(cols: Sequence[Column],
+                   budget: int = _XX_STAGE_BUDGET) -> _XxPlan:
+    """K7's plan over ``cols``: the tiles of :data:`_XX_TILES` (``strings``
+    where a string column's block fits ``budget`` at its tile rows, else
+    ``fixed``), the columns packed in chain order into groups whose staged
+    blocks fit ``budget`` bytes, and every column staged whose own block
+    fits it; a string column wider than that (its ``tile_rows x pitch``
+    chars) is read from device memory in its place in the chain."""
+    rows, per_thread = _XX_TILES["strings"]
+    if not any(c.dtype.is_string and _xx_block_bytes(c, rows) <= budget
+               for c in cols):
+        rows, per_thread = _XX_TILES["fixed"]
+    groups, slots = [], []
+    first, used, stage_bytes = 0, 0, 0
+    for i, col in enumerate(cols):
+        need = _xx_block_bytes(col, rows)
+        staged = need <= budget
+        if i and (i % MAX_HASH_COLS == 0 or staged and used + need > budget):
+            groups.append((first, i))
+            first, used = i, 0
+        slots.append(used if staged else None)
+        if staged:
+            used += need
+            stage_bytes = max(stage_bytes, used)
+    groups.append((first, len(cols)))
+    return _XxPlan(rows, per_thread, stage_bytes, tuple(groups),
+                   tuple(slots))
+
+
 def xxhash64_cols_plain(cols: Sequence[Column], seed: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`xxhash64_cols`: the JAX package's
     ``hashing._xx64_chain``."""
@@ -431,17 +555,28 @@ def xxhash64_cols_plain(cols: Sequence[Column], seed: int) -> torch.Tensor:
     zeros = torch.zeros(n, dtype=torch.int64, device=cols[0].device)
     h = (zeros, zeros + (seed & M32))
     for col in cols:
-        if col.dtype.is_string:
-            hc = _xx_string(col, h)
-        else:
-            hc = _add64(_add64(h, _c64(_XXP5)), _c64(8))
-            hc = _xx_stripe(hc, _xx_round((zeros, zeros),
-                                          _col_u64_blocks(col)),
-                            27, _XXP1, _XXP4)
-            hc = _xx_fmix(hc)
-        if col.validity is not None:
-            hc = _where64(col.valid_bools(), hc, h)
-        h = hc
+        h = _xx_field(col, h)
+    return _xx_long(h)
+
+
+def _xx_field(col: Column, h):
+    """The running hashes ``h`` (``(hi, lo)``, one a row) after one
+    column's fields: a null field leaves its row's hash as it is."""
+    if col.dtype.is_string:
+        hc = _xx_string(col, h)
+    else:
+        zeros = h[0] * 0
+        hc = _add64(_add64(h, _c64(_XXP5)), _c64(8))
+        hc = _xx_stripe(hc, _xx_round((zeros, zeros), _col_u64_blocks(col)),
+                        27, _XXP1, _XXP4)
+        hc = _xx_fmix(hc)
+    if col.validity is not None:
+        hc = _where64(col.valid_bools(), hc, h)
+    return hc
+
+
+def _xx_long(h) -> torch.Tensor:
+    """A ``(hi, lo)`` hash as Spark's long (int64)."""
     hi = h[0] - ((h[0] >> 31) << 32)                  # as int32
     return hi * (1 << 32) + h[1]
 
@@ -458,13 +593,38 @@ def xxhash64_cols(cols: Sequence[Column], seed: int) -> torch.Tensor:
         return xxhash64_cols_plain(cols, seed)
     out = torch.empty(n, dtype=torch.int64, device=_kernel_device(cols))
     if n:
-        _launch_hash("xxhash64_cols", cols, seed & M32, out)
+        _launch_hash("xxhash64_cols", cols, seed & M32, out,
+                     _xx_stage_plan(cols))
     return out
 
 
 # ---------------------------------------------------------------------------
 # K8: bloom_might_contain
 # ---------------------------------------------------------------------------
+
+# K8's routes (csrc/bloom_probe.cu's route argument), and the largest
+# filter, in long words, that the block route takes: 128 KiB of the 227 KB
+# a block's shared memory can have, the largest size at which it was
+# measured faster than the L2 route (PERF.md)
+_BLOOM_L2, _BLOOM_BLOCK = 0, 1
+_BLOOM_BLOCK_WORDS = 1 << 14
+
+
+def _bloom_route(num_words: int) -> int:
+    """K8's route for a filter of ``num_words`` long words, from its size
+    alone: the block route (the whole bitset in each block's shared
+    memory) up to :data:`_BLOOM_BLOCK_WORDS`, which holds Spark's filters
+    of up to about 143,700 expected items at its default 3% false positive
+    rate, else the L2 route (the bitset in device memory)."""
+    return _BLOOM_BLOCK if num_words <= _BLOOM_BLOCK_WORDS else _BLOOM_L2
+
+
+def _bloom_routes(num_words: int) -> List[int]:
+    """Every route K8 can take a filter of ``num_words`` long words by, to
+    time and check them beside each other: the L2 route, and the block
+    route where it fits."""
+    return [_BLOOM_L2] + [_BLOOM_BLOCK] * (num_words <= _BLOOM_BLOCK_WORDS)
+
 
 def _check_bloom(words: torch.Tensor, col: Column, k: int):
     _check(words.dtype == torch.int64 and words.dim() == 1
@@ -520,13 +680,20 @@ def bloom_might_contain(words: torch.Tensor, col: Column,
     _check_bloom(words, col, k)
     if col.device.type == "cpu":
         return bloom_might_contain_plain(words, col, k)
-    dev = _kernel_device((col,))
-    n = col.num_rows
-    out = torch.empty(n, dtype=torch.bool, device=dev)
-    if n:
-        kernels.launch(
-            "bloom_might_contain", words.data_ptr(), 64 * words.shape[0], k,
-            col.data.data_ptr(), col.dtype.itemsize,
-            None if col.validity is None else col.validity.data_ptr(), n,
-            out.data_ptr(), dev.index, kernels.stream_of(dev))
+    out = torch.empty(col.num_rows, dtype=torch.bool,
+                      device=_kernel_device((col,)))
+    if col.num_rows:
+        _launch_bloom(words, col, k, _bloom_route(words.shape[0]), out)
     return out
+
+
+def _launch_bloom(words: torch.Tensor, col: Column, k: int, route: int,
+                  out: torch.Tensor):
+    """Launch K8 by ``route`` into ``out`` (bool ``[n]``, n > 0)."""
+    dev = out.device
+    kernels.launch(
+        "bloom_might_contain", words.data_ptr(), 64 * words.shape[0], k,
+        col.data.data_ptr(), col.dtype.itemsize,
+        None if col.validity is None else col.validity.data_ptr(),
+        col.num_rows, out.data_ptr(), route, dev.index,
+        kernels.stream_of(dev))

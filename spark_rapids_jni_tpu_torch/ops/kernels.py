@@ -123,9 +123,10 @@ _ENTRY = {
     "murmur3_cols": ("srj_murmur3_cols", [
         _VP, _I32, _I64, ctypes.c_uint32, _VP, _VP, _I32, _VP]),
     "xxhash64_cols": ("srj_xxhash64_cols", [
-        _VP, _I32, _I64, ctypes.c_uint64, _VP, _VP, _I32, _VP]),
+        _VP, _I32, _I64, ctypes.c_uint64, _VP, _VP, _I32, _I32, _I32, _I32,
+        _VP]),
     "bloom_might_contain": ("srj_bloom_might_contain", [
-        _VP, _I64, _I32, _VP, _I32, _VP, _I64, _VP, _I32, _VP]),
+        _VP, _I64, _I32, _VP, _I32, _VP, _I64, _VP, _I32, _I32, _VP]),
     "gjo_scan": ("srj_gjo_scan", [
         _VP, _I64, _I64, _I32, _VP, _I32, _VP, _I32, _VP, _I32, _VP]),
     "planes_to_rows": ("srj_planes_to_rows", [

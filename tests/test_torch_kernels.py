@@ -22,7 +22,8 @@ from spark_rapids_jni_tpu_torch.ops import row_conversion as prc
 from spark_rapids_jni_tpu_torch.ops import row_kernels as prk
 from spark_rapids_jni_tpu_torch.ops.row_layout import compute_row_layout
 from spark_rapids_jni_tpu_torch.table import (
-    assert_tables_equivalent, bits_view, pack_bools, valid_bits,
+    assert_tables_equivalent, bits_view, pack_bools, slice_table,
+    slice_table_dynamic, valid_bits,
 )
 from spark_rapids_jni_tpu_torch.utils import (
     cycle_dtypes, json_boundary_docs, json_event_docs, json_window,
@@ -266,6 +267,73 @@ def test_bloom_kernel_matches_plain_version(cuda, k):
                         got, hk.bloom_might_contain_plain(words, col, k)), \
                         (num_words, n, nulls, col.dtype)
                     assert not got[~col.valid_bools()].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 5, 6, 12])
+def test_bloom_routes_match_plain_version(cuda, k):
+    """Both routes at the sizes of Spark's filters and on both sides of the
+    block route's threshold, forced through the private launch, and the
+    route the wrapper picks, against the plain version bit for bit."""
+    S = hk._BLOOM_BLOCK_WORDS
+    for num_words in (1, 11_404, S, S + 1, 1 << 17, 1 << 20):
+        words = random_bitset(num_words, 0.5 ** (1 / k), seed=k,
+                              device=cuda)
+        for n in (1, 31, 6 * 1024 + 557):
+            for nulls in (None, 0.25):
+                t = random_table(BLOOM_TYPES, n, seed=n,
+                                 null_probability=nulls, device=cuda)
+                for col in t.columns:
+                    plain = hk.bloom_might_contain_plain(words, col, k)
+                    assert torch.equal(hk.bloom_might_contain(words, col, k),
+                                       plain), (num_words, n, col.dtype)
+                    for route in hk._bloom_routes(num_words):
+                        got = torch.empty(n, dtype=torch.bool, device=cuda)
+                        hk._launch_bloom(words, col, k, route, got)
+                        assert torch.equal(got, plain), \
+                            (num_words, route, n, nulls, col.dtype)
+
+
+@pytest.mark.gpu
+def test_bloom_block_route_rejects_filters_it_cannot_hold(cuda):
+    """A bitset past a block's 227 KB, and an unknown route, raise."""
+    words = random_bitset(29_100, 0.5, device=cuda)
+    col = random_table([INT64], 100, device=cuda).columns[0]
+    out = torch.empty(100, dtype=torch.bool, device=cuda)
+    for route in (hk._BLOOM_BLOCK, 2):
+        with pytest.raises(RuntimeError, match="bloom_might_contain"):
+            hk._launch_bloom(words, col, 3, route, out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 255, 257, 6 * 1024 + 557])
+def test_xxhash64_staging_edges(cuda, n):
+    """K7 over column views whose data, lengths, chars or masks start inside
+    a 16-byte chunk, row counts off the 256- and 1,024-row tiles, string
+    pitches on both sides of the staging limit (120 and 124 bytes with a
+    mask at 256 rows a tile and 32 KiB a stage), and plans whose budgets
+    stage nothing, give many small groups, or read the wider strings in
+    place, bit for bit; K6 beside it."""
+    m = n + 11
+    t = random_table(HASH_FIXED, m, seed=n, null_probability=0.25,
+                     device=cuda)
+    strings = [strings_with_lengths(
+        (torch.arange(m, device=cuda) * 7 % (W + 1)).to(torch.int32), W,
+        seed=W, null_probability=0.25) for W in (0, 12, 68, 120, 124)]
+    whole = Table(tuple(t.columns) + tuple(strings))
+    odd = slice_table(whole, 3, 3 + n).columns
+    shifted = slice_table_dynamic(whole, 8, n).columns
+    assert any(c.data.data_ptr() % 16 for c in odd[:11])
+    for cols in (odd, shifted, [odd[8], odd[6], odd[-2], odd[-1]]):
+        plain = hk.xxhash64_cols_plain(cols, 42)
+        assert torch.equal(hk.xxhash64_cols(cols, 42), plain)
+        for budget in (64, 2200, 4096):
+            got = torch.empty(n, dtype=torch.int64, device=cuda)
+            hk._launch_hash("xxhash64_cols", cols, 42, got,
+                            hk._xx_stage_plan(cols, budget=budget))
+            assert torch.equal(got, plain), budget
+        assert torch.equal(hk.murmur3_cols(cols, 42),
+                           hk.murmur3_cols_plain(cols, 42))
 
 
 @pytest.mark.gpu
