@@ -14,6 +14,9 @@ launch count set to 0 just before the path and read just after:
   into Spark's default 200 shuffle partitions;
 - ``xxhash64`` and ``murmur3_hash`` over 8 INT64 key columns, and over a
   padded string column (lengths 0..64) and an INT64 column, at 4M rows;
+  K7 also with the string read in place, K6 also with the string's whole
+  tile staged (K7's route) beside the string read in place as its plan
+  reads it, and K6 at each tile setting of its sweep over paths 1 to 3;
 - the bloom probe ``might_contain_device`` of 4M INT64 rows against Spark's
   runtime-filter defaults: 8,388,608 bits with 1M build keys, the
   67,108,864-bit maximum with 4M build keys, and the 729,856 bits of a
@@ -87,6 +90,7 @@ one card and no network; its device memory peaks at about 43 GB (the 10.24M
 row phase), which the timing line prints.
 """
 
+import dataclasses
 import json
 import math
 import re
@@ -400,25 +404,75 @@ def _timed(fn, plain_fn, bound: dict, rows: int) -> dict:
             "plain_ms": median_ms(plain_fn, runs=5, warmup=1), **bound}
 
 
+def _plan_record(plan) -> dict:
+    return {"tile_rows": plan.tile_rows,
+            "rows_per_thread": plan.rows_per_thread,
+            "groups": len(plan.groups), "stage_bytes": plan.stage_bytes,
+            "staged_columns": sum(s is not None for s in plan.slots)}
+
+
 def _hash_timings(cols, label: str, out: dict):
-    """Time both hash kernels over ``cols`` into ``out`` under ``label``."""
+    """Time both hash kernels over ``cols`` into ``out`` under ``label``,
+    each with the plan it staged by."""
     from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
     n = cols[0].num_rows
     nbytes = sum(_col_bytes(c) for c in cols)
-    out[f"murmur3_cols{label}"] = _timed(
-        lambda: hk.murmur3_cols(cols, 42),
-        lambda: hk.murmur3_cols_plain(cols, 42),
-        _bound(nbytes + 4 * n, sum(_mm3_ops(c) for c in cols)), n)
-    plan = hk._xx_stage_plan(cols)
+    out[f"murmur3_cols{label}"] = {
+        **_timed(lambda: hk.murmur3_cols(cols, 42),
+                 lambda: hk.murmur3_cols_plain(cols, 42),
+                 _bound(nbytes + 4 * n, sum(_mm3_ops(c) for c in cols)), n),
+        "plan": _plan_record(
+            hk._stage_plan(cols, hk._STAGING["murmur3_cols"]))}
     out[f"xxhash64_cols{label}"] = {
         **_timed(lambda: hk.xxhash64_cols(cols, 42),
                  lambda: hk.xxhash64_cols_plain(cols, 42),
                  _bound(nbytes + 8 * n, sum(_xx_ops(c) for c in cols)), n),
-        "plan": {"tile_rows": plan.tile_rows,
-                 "rows_per_thread": plan.rows_per_thread,
-                 "groups": len(plan.groups),
-                 "stage_bytes": plan.stage_bytes,
-                 "staged_columns": sum(s is not None for s in plan.slots)}}
+        "plan": _plan_record(
+            hk._stage_plan(cols, hk._STAGING["xxhash64_cols"]))}
+
+
+def _hold_staged(name, cols, staging, errs, what, budget=None):
+    """Hash kernel ``name`` over ``cols`` by the plan of ``staging`` (and
+    ``budget``), held against its plain version; returns a call of it."""
+    from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
+    plan = hk._stage_plan(cols, staging, **(
+        {} if budget is None else {"budget": budget}))
+    dtype = torch.int32 if name == "murmur3_cols" else torch.int64
+    out = torch.empty(cols[0].num_rows, dtype=dtype, device=CARD)
+    hk._launch_hash(name, cols, 42, out, plan)
+    _hold_hash(name, out, cols, 42, errs, what)
+    return lambda: hk._launch_hash(name, cols, 42, out, plan)
+
+
+def _staged_ms(name, cols, staging, errs, what, budget=None) -> float:
+    """:func:`_hold_staged`, then the call timed."""
+    return median_ms(_hold_staged(name, cols, staging, errs, what, budget),
+                     flush=True)
+
+
+# K6's tile sweep: (rows a tile, rows a consumer thread) for fixed-width
+# chains and for chains with a string; the plan keeps one of each as a
+# constant (hash_kernels._STAGING).  K6 takes at most 256 rows a tile at
+# one row a thread (hash_stage.cuh's kStageOneRowConsumers).
+MM3_FIXED_TILES = ((256, 1), (256, 2), (512, 2), (1024, 2))
+MM3_STRING_TILES = ((128, 1), (256, 1), (256, 2), (512, 2))
+
+
+def _mm3_tile_sweep(cols, field, tiles, errs, what) -> dict:
+    """K6 over ``cols`` at each of ``tiles`` for its ``field`` of staging
+    (``fixed`` or ``strings``), every result held against the plain
+    version: {"rows x per_thread": ms}."""
+    from spark_rapids_jni_tpu_torch.ops import hash_kernels as hk
+    mm3 = hk._STAGING["murmur3_cols"]
+    sweep = {}
+    for tile in tiles:
+        staging = dataclasses.replace(mm3, **{field: tile})
+        plan = hk._stage_plan(cols, staging)
+        check((plan.tile_rows, plan.rows_per_thread) == tile,
+              f"sweep tile {tile} gave plan {plan}")
+        sweep[f"{tile[0]}x{tile[1]}"] = _staged_ms(
+            "murmur3_cols", cols, staging, errs, f"{what}, tile {tile}")
+    return sweep
 
 
 # ---------------------------------------------------------------------------
@@ -493,6 +547,8 @@ def phase_hash_partition(table, batches, dtypes, errs, timing):
     counts = torch.bincount(torch.cat([ids for _, ids in parts]).long(),
                             minlength=NUM_PARTITIONS)
     _hash_timings(parts[0][0], "_partition_keys", timing)
+    timing["murmur3_cols_partition_keys"]["tile_sweep"] = _mm3_tile_sweep(
+        parts[0][0], "fixed", MM3_FIXED_TILES, errs, "path 1 keys")
     emit(phase="hash_partition_4m", rows=N_4M,
          batch_rows=[b.num_rows for b in batches],
          num_partitions=NUM_PARTITIONS, launches=launches,
@@ -518,6 +574,8 @@ def phase_hash_keys(errs, timing):
         _hold_hash(name, got, keys.columns, DEFAULT_SEED, errs,
                    "path 2, 8 INT64 keys")
     _hash_timings(keys.columns, "", timing)
+    timing["murmur3_cols"]["tile_sweep"] = _mm3_tile_sweep(
+        keys.columns, "fixed", MM3_FIXED_TILES, errs, "path 2 keys")
     emit(phase="hash_keys_4m", rows=N_4M, columns=8, launches=launches,
          equal_plain=True)
     return launches
@@ -546,18 +604,27 @@ def phase_hash_strings(errs, timing):
     _hash_timings(cols, "_strings", timing)
     # K7 with the string read in place (a plan whose budget stages the
     # INT64 column only) beside the staged string of its own plan
-    plan = hk._xx_stage_plan(cols)
+    xx = hk._STAGING["xxhash64_cols"]
+    plan = hk._stage_plan(cols, xx)
     # the INT64 column's slot is the size of the string's block before it
-    direct = hk._xx_stage_plan(cols, budget=plan.slots[1] - 1)
+    direct = hk._stage_plan(cols, xx, budget=plan.slots[1] - 1)
     check(plan.slots[0] is not None and direct.slots[0] is None
           and direct.slots[1] is not None, f"plans {plan} {direct}")
-    out = torch.empty(N_4M, dtype=torch.int64, device=CARD)
-    hk._launch_hash("xxhash64_cols", cols, DEFAULT_SEED, out, direct)
-    _hold_hash("xxhash64_cols", out, cols, DEFAULT_SEED, errs,
-               "path 3, the string read in place")
-    timing["xxhash64_cols_strings"]["direct_string_ms"] = median_ms(
-        lambda: hk._launch_hash("xxhash64_cols", cols, 42, out, direct),
-        flush=True)
+    timing["xxhash64_cols_strings"]["direct_string_ms"] = _staged_ms(
+        "xxhash64_cols", cols, xx, errs, "path 3, the string read in place",
+        budget=plan.slots[1] - 1)
+    # K6 with the string's whole tile bulk-copied (K7's route) beside the
+    # string read in place by its own plan, and its string tiles swept
+    mm3 = hk._STAGING["murmur3_cols"]
+    whole_tile = dataclasses.replace(mm3, stage_strings=True)
+    check(hk._stage_plan(cols, mm3).slots[0] is None
+          and hk._stage_plan(cols, whole_tile).slots[0] is not None,
+          "path 3's K6 plans")
+    timing["murmur3_cols_strings"]["whole_tile_ms"] = _staged_ms(
+        "murmur3_cols", cols, whole_tile, errs,
+        "path 3, the string's whole tile staged")
+    timing["murmur3_cols_strings"]["tile_sweep"] = _mm3_tile_sweep(
+        cols, "strings", MM3_STRING_TILES, errs, "path 3")
     emit(phase="hash_strings_4m", rows=N_4M, width=cols[0].chars2d.shape[1],
          bytes_at_or_above_0x80=high, launches=launches, equal_plain=True)
     return launches
@@ -791,24 +858,33 @@ def phase_hash_edges(errs):
                 route_cases += len(_hold_routes(
                     words, col, k, errs,
                     f"{num_words} words, k={k}, {col.dtype}"))
-    # K7 (and K6) over views whose values, lengths, chars or masks start
-    # inside a 16-byte chunk, with strings on both sides of the staging
-    # limit (pitch 120 staged, 124 read in place)
+    # K7 and K6 over views whose values, lengths, chars or masks start
+    # inside a 16-byte chunk, with strings of every length 0..W on both
+    # sides of the whole-tile staging limit (pitch 120 staged, 124 read in
+    # place); K6 also by that route beside its own (strings in place)
     from spark_rapids_jni_tpu_torch.table import (
         Table, slice_table, slice_table_dynamic,
     )
     t = random_table(fixed, n + 11, seed=5, null_probability=0.25)
     strings = [strings_with_lengths(
-        (torch.arange(n + 11, device=CARD) * 7 % (W + 1)).to(torch.int32),
+        (torch.arange(n + 11, device=CARD) * 19 % (W + 1)).to(torch.int32),
         W, seed=W, null_probability=0.25) for W in (12, 68, 120, 124)]
     whole = Table(tuple(t.columns) + tuple(strings))
+    mm3 = hk._STAGING["murmur3_cols"]
+    whole_tile = dataclasses.replace(mm3, stage_strings=True)
     for cols in (slice_table(whole, 3, n + 3).columns,
                  slice_table_dynamic(whole, 8, n).columns):
-        slots = hk._xx_stage_plan(cols).slots
-        check(slots[-2] is not None and slots[-1] is None,
-              f"pitch 120 not staged or 124 staged: {slots[-2:]}")
+        for staging in (hk._STAGING["xxhash64_cols"], whole_tile):
+            slots = hk._stage_plan(cols, staging).slots
+            check(slots[-2] is not None and slots[-1] is None,
+                  f"pitch 120 not staged or 124 staged: {slots[-2:]}")
+        check(all(s is None for c, s in
+                  zip(cols, hk._stage_plan(cols, mm3).slots)
+                  if c.dtype.is_string), "K6 staged a string")
         _hold_hashes(list(cols), 42, errs, "views at odd offsets")
-        cases += 2
+        _hold_staged("murmur3_cols", list(cols), whole_tile, errs,
+                     "views at odd offsets, strings staged whole")
+        cases += 3
     # chains past MAX_HASH_COLS columns: ceil(ncols / 800) launches, each
     # seeded per row by the previous one's hashes; a string column in the
     # first and in the last launch

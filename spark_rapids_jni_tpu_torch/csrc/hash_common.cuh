@@ -1,8 +1,9 @@
 // Shared by the hash kernels (murmur3.cu, xxhash64.cu, bloom_probe.cu): the
-// column descriptor the wrappers hand over, the launch of one thread a row,
-// Spark's normalisation of a fixed-width value by type code, and the
-// murmur3_x86_32 and xxhash64 primitives in native 32- and 64-bit unsigned
-// arithmetic.
+// column descriptor the wrappers hand over, the launch of one thread a row
+// (the bloom probe's L2 route; the column hashes stage their tiles through
+// hash_stage.cuh), Spark's normalisation of a fixed-width value by type
+// code, and the murmur3_x86_32 and xxhash64 primitives in native 32- and
+// 64-bit unsigned arithmetic.
 //
 // The normalisation is the JAX package's hashing._as_u32_words (murmur3)
 // and _col_u64_blocks (xxhash64):
@@ -39,8 +40,8 @@ struct SrjHashCol {
   const int32_t* lens;   // string lengths [n]; null for fixed width
   int64_t pitch;         // string row pitch in bytes (a multiple of 4)
   int32_t type;          // SrjHashType
-  int32_t stage;         // xxhash64's staging plan (xxhash64.cu); 0 for
-                         // murmur3, which reads every column in place
+  int32_t stage;         // the staging plan's group, offset and string
+                         // route for the column (hash_stage.cuh)
 };
 
 // The descriptors of one hash launch, passed by value in the kernel's
@@ -60,8 +61,8 @@ constexpr int kHashThreads = 256;
 
 // Launches kernel(args...) over n rows, one thread a row in blocks of
 // kHashThreads, on `stream` of card `device`, and returns the launch's
-// cudaError_t (0, launching nothing, when n <= 0).  murmur3 and the bloom
-// probe's L2 route launch through it.
+// cudaError_t (0, launching nothing, when n <= 0).  The bloom probe's L2
+// route launches through it.
 template <typename... Params, typename... Args>
 int srj_launch_rows(void (*kernel)(Params...), int64_t n, int device,
                     void* stream, Args... args) {
@@ -73,27 +74,6 @@ int srj_launch_rows(void (*kernel)(Params...), int64_t n, int device,
   kernel<<<blocks, kHashThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       args...);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The C entry point of murmur3 (xxhash64.cu launches its own way): copies the ncols host descriptors at
-// `cols` into the kernel's parameters and launches, over n rows,
-// first(cols, n, seed, out) where row_seeds is null (a chain's first
-// launch: every row starts at seed), else chain(cols, n, row_seeds, out)
-// (a later launch: row_seeds is the previous launch's output, often `out`
-// itself, and each row starts from its own value there).
-template <typename First, typename Chain, typename Seed, typename Out>
-int srj_launch_hash(First first, Chain chain, const SrjHashCol* cols,
-                    int ncols, int64_t n, Seed seed, const Out* row_seeds,
-                    Out* out, int device, void* stream) {
-  if (ncols < 1 || ncols > kMaxHashCols)
-    return static_cast<int>(cudaErrorInvalidValue);
-  SrjHashCols params;
-  for (int i = 0; i < ncols; ++i) params.col[i] = cols[i];
-  params.ncols = ncols;
-  if (row_seeds == nullptr)
-    return srj_launch_rows(first, n, device, stream, params, n, seed, out);
-  return srj_launch_rows(chain, n, device, stream, params, n, row_seeds,
-                         out);
 }
 
 __device__ __forceinline__ bool srj_row_valid(const SrjHashCol& c,
@@ -154,17 +134,6 @@ __device__ __forceinline__ const uint8_t* srj_string_row(const SrjHashCol& c,
   const int32_t l = __ldg(c.lens + row);
   *len = static_cast<int>(l < 0 ? 0 : (l > c.pitch ? c.pitch : l));
   return static_cast<const uint8_t*>(c.data) + row * c.pitch;
-}
-
-// 4 bytes at a 4-byte-aligned address.
-__device__ __forceinline__ uint32_t srj_load32(const uint8_t* p) {
-  return __ldg(reinterpret_cast<const uint32_t*>(p));
-}
-
-// 8 bytes at a 4-byte-aligned address (string rows are 4-byte aligned only).
-__device__ __forceinline__ uint64_t srj_load64(const uint8_t* p) {
-  return static_cast<uint64_t>(srj_load32(p)) |
-         (static_cast<uint64_t>(srj_load32(p + 4)) << 32);
 }
 
 // ---------------------------------------------------------------------------

@@ -24,10 +24,13 @@ are those of one launch.
 Two plans, computed here in Python so that the CPU tests reach them, steer
 the kernels:
 
-- K7 stages tiles of rows in a ring of shared-memory stages, filled by bulk
-  copies while the last stage is hashed; :func:`_xx_stage_plan` fixes the
-  rows a tile, the column groups (one stage each, in chain order) and each
-  column's place in its stage, or that it is read from device memory.
+- K6 and K7 stage tiles of rows in a ring of shared-memory stages, filled
+  while the last stage is hashed (``csrc/hash_stage.cuh``, which both
+  include); :func:`_stage_plan` fixes, from a kernel's :class:`_Staging`
+  and the columns' shapes, the rows a tile, the column groups (one stage
+  each, in chain order), and each column's place in its stage or that it
+  is read from device memory: K7 stages a string's whole tile of chars
+  where it fits, K6 reads every string in place.
 - K8 keeps the filter on chip where it fits: :func:`_bloom_route` picks,
   from the filter's size alone, the block route (the whole bitset in each
   block's shared memory) or the L2 route (the bitset in device memory).
@@ -350,6 +353,134 @@ def _xx_string(col: Column, h):
 
 
 # ---------------------------------------------------------------------------
+# The staging plan of K6 and K7 (csrc/hash_stage.cuh)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Staging:
+    """How a hash kernel stages its tiles: (rows a tile, rows a consumer
+    thread) for a chain of fixed-width columns and for one with a string
+    column, and whether it stages a string's whole tile of chars (the
+    producer bulk-copies its rows x pitch bytes) where the string fits a
+    stage, or reads every string in place.  A tile's rows are a multiple of
+    128, so that its mask bytes and values come in 16-byte multiples."""
+    fixed: Tuple[int, int]
+    strings: Tuple[int, int]
+    stage_strings: bool
+
+
+# each kernel's staging: one row a thread (more threads) over a chain with
+# a string, whose byte loop diverges.  K6 reads strings in place: on the
+# card that beat staging them whole and fetching only the 16-byte chunks
+# under each row's length (PERF.md).
+_STAGING = {
+    "murmur3_cols": _Staging(fixed=(1024, 2), strings=(256, 1),
+                             stage_strings=False),
+    "xxhash64_cols": _Staging(fixed=(1024, 2), strings=(256, 1),
+                              stage_strings=True),
+}
+# the stages of a block's ring (hash_stage.cuh's kStages) and the most bytes
+# a group's stage holds
+_STAGES = 3
+_STAGE_BUDGET = 32 << 10
+# SrjHashCol::stage: set where a column starts a group; below it the
+# column's offset in its stage in 16-byte units plus one (0: not staged)
+_GROUP_START = 1 << 24
+
+
+def _region(nbytes: int) -> int:
+    """The room of a staged part of ``nbytes`` bytes: whole 16-byte chunks
+    and one more, since a bulk copy moves the aligned chunks that hold the
+    part, which may start inside its first chunk."""
+    return -(-nbytes // 16) * 16 + 16
+
+
+def _stage_regions(col: Column, rows: int) -> Dict[str, Tuple[int, int]]:
+    """(offset, room) of each part of a column's staged block for a tile
+    of ``rows`` rows: ``values`` (fixed width) or ``lens`` and ``chars`` (a
+    string; no chars at a zero width), then ``mask`` where the column has
+    one.  ``csrc/hash_stage.cuh`` lays the block out the same way
+    (``stage_chars_off``, ``stage_mask_off``)."""
+    if col.dtype.is_string:
+        parts = [("lens", 4 * rows)]
+        if _string_pitch(col):
+            parts.append(("chars", rows * _string_pitch(col)))
+    else:
+        parts = [("values", rows * col.dtype.itemsize)]
+    if col.validity is not None:
+        parts.append(("mask", rows // 8))
+    regions, off = {}, 0
+    for name, nbytes in parts:
+        regions[name] = (off, _region(nbytes))
+        off += _region(nbytes)
+    return regions
+
+
+def _block_bytes(col: Column, rows: int) -> int:
+    return sum(room for _, room in _stage_regions(col, rows).values())
+
+
+@dataclasses.dataclass(frozen=True)
+class _StagePlan:
+    """What K6 or K7 follows over a list of columns.  ``tile_rows`` rows a
+    tile, ``rows_per_thread`` of them a consumer thread; ``groups``: [start,
+    stop) column ranges in chain order, each hashed from one stage of at
+    most ``stage_bytes`` bytes, a new one at every launch of
+    :data:`MAX_HASH_COLS` columns; ``slots``: each column's byte offset in
+    its group's stage, None where the kernel reads it from device
+    memory."""
+    tile_rows: int
+    rows_per_thread: int
+    stage_bytes: int
+    groups: Tuple[Tuple[int, int], ...]
+    slots: Tuple[Optional[int], ...]
+
+    def stage_fields(self, start: int, stop: int) -> List[int]:
+        """The SrjHashCol::stage values of columns [start, stop)."""
+        firsts = {g for g, _ in self.groups}
+        return [(0 if self.slots[i] is None else self.slots[i] // 16 + 1)
+                | (_GROUP_START if i in firsts else 0)
+                for i in range(start, stop)]
+
+
+def _stage_plan(cols: Sequence[Column], staging: _Staging,
+                budget: int = _STAGE_BUDGET) -> _StagePlan:
+    """A hash kernel's plan over ``cols`` from its ``staging`` and the
+    columns' shapes alone: the ``strings`` tiles where a string column
+    stages (or, where the staging reads strings in place, where there is a
+    string column), else the ``fixed`` ones; the columns packed in chain
+    order into groups whose staged blocks fit ``budget`` bytes; every
+    fixed-width column staged whose block fits it, and every string whose
+    block (its ``tile_rows x pitch`` chars) does where the staging stages
+    strings.  Any other column is read from device memory in its place in
+    the chain."""
+    def staged(col, rows):
+        return ((staging.stage_strings or not col.dtype.is_string)
+                and _block_bytes(col, rows) <= budget)
+
+    rows, per_thread = staging.strings
+    if not any(c.dtype.is_string
+               and (staged(c, rows) or not staging.stage_strings)
+               for c in cols):
+        rows, per_thread = staging.fixed
+    groups, slots = [], []
+    first, used, stage_bytes = 0, 0, 0
+    for i, col in enumerate(cols):
+        need = _block_bytes(col, rows)
+        here = staged(col, rows)
+        if i and (i % MAX_HASH_COLS == 0 or here and used + need > budget):
+            groups.append((first, i))
+            first, used = i, 0
+        slots.append(used if here else None)
+        if here:
+            used += need
+            stage_bytes = max(stage_bytes, used)
+    groups.append((first, len(cols)))
+    return _StagePlan(rows, per_thread, stage_bytes, tuple(groups),
+                      tuple(slots))
+
+
+# ---------------------------------------------------------------------------
 # K6: murmur3_cols
 # ---------------------------------------------------------------------------
 
@@ -360,16 +491,27 @@ def murmur3_cols_plain(cols: Sequence[Column], seed: int) -> torch.Tensor:
     h = torch.full((n,), seed & M32, dtype=torch.int64,
                    device=cols[0].device)
     for col in cols:
-        if col.dtype.is_string:
-            hc = _mm3_string(col, h)
-        else:
-            words = _as_u32_words(col)
-            hc = h
-            for w in words:
-                hc = _mm3_mix_h1(hc, w)
-            hc = _mm3_fmix(hc, 4 * len(words))
-        h = torch.where(col.valid_bools(), hc, h) \
-            if col.validity is not None else hc
+        h = _mm3_field(col, h)
+    return _mm3_int(h)
+
+
+def _mm3_field(col: Column, h: torch.Tensor) -> torch.Tensor:
+    """The running hashes ``h`` (one a row, in ``[0, 2^32)``) after one
+    column's fields: a null field leaves its row's hash as it is."""
+    if col.dtype.is_string:
+        hc = _mm3_string(col, h)
+    else:
+        words = _as_u32_words(col)
+        hc = h
+        for w in words:
+            hc = _mm3_mix_h1(hc, w)
+        hc = _mm3_fmix(hc, 4 * len(words))
+    return torch.where(col.valid_bools(), hc, h) \
+        if col.validity is not None else hc
+
+
+def _mm3_int(h: torch.Tensor) -> torch.Tensor:
+    """Hashes in ``[0, 2^32)`` as Spark's int (int32)."""
     return (h - ((h >> 31) << 32)).to(torch.int32)
 
 
@@ -403,25 +545,22 @@ def _descriptors(cols: Sequence[Column]) -> ctypes.Array:
 
 
 def _launch_hash(name: str, cols: Sequence[Column], seed: int,
-                 out: torch.Tensor, plan: Optional["_XxPlan"] = None):
-    """Launch kernel ``name`` over ``cols`` in chunks of
-    :data:`MAX_HASH_COLS` columns: the first from ``seed``, each later one
-    from the hashes in ``out``, which it overwrites.  K7 takes its ``plan``
-    in the descriptors' stage fields and its tile rows and stage bytes."""
+                 out: torch.Tensor, plan: "_StagePlan"):
+    """Launch kernel ``name`` (K6 or K7) over ``cols`` by ``plan`` in chunks
+    of :data:`MAX_HASH_COLS` columns: the first from ``seed``, each later
+    one from the hashes in ``out``, which it overwrites.  The plan reaches
+    the kernel in the descriptors' stage fields and in its tile rows, rows
+    a thread and stage bytes."""
     dev = out.device
     for i in range(0, len(cols), MAX_HASH_COLS):
         chunk = cols[i:i + MAX_HASH_COLS]
         descs = _descriptors(chunk)
-        staging = ()
-        if plan is not None:
-            for d, field in zip(descs, plan.stage_fields(i, i + len(chunk))):
-                d.stage = field
-            staging = (plan.tile_rows, plan.rows_per_thread,
-                       plan.stage_bytes)
+        for d, field in zip(descs, plan.stage_fields(i, i + len(chunk))):
+            d.stage = field
         kernels.launch(name, ctypes.addressof(descs), len(chunk),
                        out.shape[0], seed, None if i == 0 else out.data_ptr(),
-                       out.data_ptr(), *staging, dev.index,
-                       kernels.stream_of(dev))
+                       out.data_ptr(), plan.tile_rows, plan.rows_per_thread,
+                       plan.stage_bytes, dev.index, kernels.stream_of(dev))
 
 
 def _kernel_device(cols: Sequence[Column]) -> torch.device:
@@ -442,111 +581,14 @@ def murmur3_cols(cols: Sequence[Column], seed: int) -> torch.Tensor:
         return murmur3_cols_plain(cols, seed)
     out = torch.empty(n, dtype=torch.int32, device=_kernel_device(cols))
     if n:
-        _launch_hash("murmur3_cols", cols, seed & M32, out)
+        _launch_hash("murmur3_cols", cols, seed & M32, out,
+                     _stage_plan(cols, _STAGING["murmur3_cols"]))
     return out
 
 
 # ---------------------------------------------------------------------------
 # K7: xxhash64_cols
 # ---------------------------------------------------------------------------
-
-# K7's staging (csrc/xxhash64.cu): (rows a tile, rows a consumer thread)
-# for a fixed-width chain and for one with a staged string (whose byte loop
-# diverges: more threads, a row each, did better on the card); a tile's
-# rows are a multiple of 128, so that its mask bytes and values come in
-# 16-byte multiples.  The stages of a block's ring (its kXxStages) and the
-# most bytes a group's stage holds.
-_XX_TILES = {"fixed": (1024, 2), "strings": (256, 1)}
-_XX_STAGES = 3
-_XX_STAGE_BUDGET = 32 << 10
-# SrjHashCol::stage: set where a column starts a group; below it the
-# column's offset in its stage in 16-byte units plus one (0: not staged)
-_XX_GROUP_START = 1 << 24
-
-
-def _xx_region(nbytes: int) -> int:
-    """The room of a staged part of ``nbytes`` bytes: whole 16-byte chunks
-    and one more, since a bulk copy moves the aligned chunks that hold the
-    part, which may start inside its first chunk."""
-    return -(-nbytes // 16) * 16 + 16
-
-
-def _xx_regions(col: Column, rows: int) -> Dict[str, Tuple[int, int]]:
-    """(offset, room) of each part of a column's staged block for a tile
-    of ``rows`` rows: ``values`` (fixed width) or ``lens`` and ``chars`` (a
-    string; no chars at a zero width), then ``mask`` where the column has
-    one.  ``csrc/xxhash64.cu`` lays the block out the same way
-    (``xx_chars_off``, ``xx_mask_off``)."""
-    if col.dtype.is_string:
-        parts = [("lens", 4 * rows)]
-        if _string_pitch(col):
-            parts.append(("chars", rows * _string_pitch(col)))
-    else:
-        parts = [("values", rows * col.dtype.itemsize)]
-    if col.validity is not None:
-        parts.append(("mask", rows // 8))
-    regions, off = {}, 0
-    for name, nbytes in parts:
-        regions[name] = (off, _xx_region(nbytes))
-        off += _xx_region(nbytes)
-    return regions
-
-
-@dataclasses.dataclass(frozen=True)
-class _XxPlan:
-    """What K7 follows over a list of columns.  ``tile_rows`` rows a tile,
-    ``rows_per_thread`` of them a consumer thread; ``groups``: [start,
-    stop) column ranges in chain order, each hashed from one stage of at
-    most ``stage_bytes`` bytes, a new one at every launch of
-    :data:`MAX_HASH_COLS` columns; ``slots``: each column's byte offset in
-    its group's stage, None where the kernel reads it from device
-    memory."""
-    tile_rows: int
-    rows_per_thread: int
-    stage_bytes: int
-    groups: Tuple[Tuple[int, int], ...]
-    slots: Tuple[Optional[int], ...]
-
-    def stage_fields(self, start: int, stop: int) -> List[int]:
-        """The SrjHashCol::stage values of columns [start, stop)."""
-        firsts = {g for g, _ in self.groups}
-        return [(0 if self.slots[i] is None else self.slots[i] // 16 + 1)
-                | (_XX_GROUP_START if i in firsts else 0)
-                for i in range(start, stop)]
-
-
-def _xx_block_bytes(col: Column, rows: int) -> int:
-    return sum(room for _, room in _xx_regions(col, rows).values())
-
-
-def _xx_stage_plan(cols: Sequence[Column],
-                   budget: int = _XX_STAGE_BUDGET) -> _XxPlan:
-    """K7's plan over ``cols``: the tiles of :data:`_XX_TILES` (``strings``
-    where a string column's block fits ``budget`` at its tile rows, else
-    ``fixed``), the columns packed in chain order into groups whose staged
-    blocks fit ``budget`` bytes, and every column staged whose own block
-    fits it; a string column wider than that (its ``tile_rows x pitch``
-    chars) is read from device memory in its place in the chain."""
-    rows, per_thread = _XX_TILES["strings"]
-    if not any(c.dtype.is_string and _xx_block_bytes(c, rows) <= budget
-               for c in cols):
-        rows, per_thread = _XX_TILES["fixed"]
-    groups, slots = [], []
-    first, used, stage_bytes = 0, 0, 0
-    for i, col in enumerate(cols):
-        need = _xx_block_bytes(col, rows)
-        staged = need <= budget
-        if i and (i % MAX_HASH_COLS == 0 or staged and used + need > budget):
-            groups.append((first, i))
-            first, used = i, 0
-        slots.append(used if staged else None)
-        if staged:
-            used += need
-            stage_bytes = max(stage_bytes, used)
-    groups.append((first, len(cols)))
-    return _XxPlan(rows, per_thread, stage_bytes, tuple(groups),
-                   tuple(slots))
-
 
 def xxhash64_cols_plain(cols: Sequence[Column], seed: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`xxhash64_cols`: the JAX package's
@@ -594,7 +636,7 @@ def xxhash64_cols(cols: Sequence[Column], seed: int) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.int64, device=_kernel_device(cols))
     if n:
         _launch_hash("xxhash64_cols", cols, seed & M32, out,
-                     _xx_stage_plan(cols))
+                     _stage_plan(cols, _STAGING["xxhash64_cols"]))
     return out
 
 

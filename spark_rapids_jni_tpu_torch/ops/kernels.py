@@ -121,7 +121,8 @@ _ENTRY = {
         _VP]),
     "pack_planes": ("srj_pack_planes", [_VP, _I64, _I64, _VP, _I32, _VP]),
     "murmur3_cols": ("srj_murmur3_cols", [
-        _VP, _I32, _I64, ctypes.c_uint32, _VP, _VP, _I32, _VP]),
+        _VP, _I32, _I64, ctypes.c_uint32, _VP, _VP, _I32, _I32, _I32, _I32,
+        _VP]),
     "xxhash64_cols": ("srj_xxhash64_cols", [
         _VP, _I32, _I64, ctypes.c_uint64, _VP, _VP, _I32, _I32, _I32, _I32,
         _VP]),

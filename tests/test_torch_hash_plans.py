@@ -1,14 +1,17 @@
 """PyTorch port, the plans that steer the hash kernels, on the CPU.
 
 ``hash_kernels._bloom_route`` picks K8's route from a filter's size, and
-``hash_kernels._xx_stage_plan`` fixes how K7 stages tiles of rows in
-shared memory.  Both are Python, so they are held here without a card: the
-routes' slices cover the bitset, and a torch replay that stages each tile
-group by group as the kernel's bulk copies do (the aligned 16-byte chunks
-that hold a part, at the part's region in the stage) and hashes it in the
-plan's order gives ``xxhash64_cols_plain``'s bits.
+``hash_kernels._stage_plan`` fixes how K6 and K7 stage tiles of rows in
+shared memory (``csrc/hash_stage.cuh``).  Both are Python, so they are held
+here without a card.  A torch replay stages each tile group by group as the
+kernels do, in a stage filled with a poison byte: the aligned 16-byte chunks
+that hold a part, at the part's region in the stage, and for K6's strings
+only the chunks under each valid row's length, in the consumer warps' slots
+of an odd number of chunks.  Hashed in the plan's order from the stage, it gives
+``xxhash64_cols_plain``'s and ``murmur3_cols_plain``'s bits.
 """
 
+import dataclasses
 import functools
 
 import pytest
@@ -35,6 +38,10 @@ SPARK_DEFAULT_WORDS, SPARK_MAX_WORDS, OPTIMAL_100K_WORDS = (
     131_072, 1_048_576, 11_404)
 # the most dynamic shared memory a block of an H100 takes
 H100_SMEM_BYTES = 232_448
+MM3 = hk._STAGING["murmur3_cols"]
+XX = hk._STAGING["xxhash64_cols"]
+# what the replay's stage holds before anything is copied in
+POISON = 0xA5
 
 
 # ---------------------------------------------------------------------------
@@ -80,23 +87,30 @@ def test_bloom_route_over_filter_sizes():
 
 
 # ---------------------------------------------------------------------------
-# K7: _xx_stage_plan
+# K6 and K7: _stage_plan
 # ---------------------------------------------------------------------------
 
 def _block_bytes(col, rows):
-    return sum(room for _, room in hk._xx_regions(col, rows).values())
+    return sum(room for _, room in hk._stage_regions(col, rows).values())
 
 
-def _check_plan(cols, plan, budget=hk._XX_STAGE_BUDGET):
+def _staged(col, rows, staging, budget):
+    """Whether a column stages at ``rows`` rows a tile."""
+    return ((staging.stage_strings or not col.dtype.is_string)
+            and _block_bytes(col, rows) <= budget)
+
+
+def _check_plan(cols, plan, staging, budget=hk._STAGE_BUDGET):
     R = plan.tile_rows
     assert R % 128 == 0 and plan.rows_per_thread in (1, 2)
     assert R // plan.rows_per_thread <= 512           # consumer threads
-    staged_string = any(c.dtype.is_string and s is not None
-                        for c, s in zip(cols, plan.slots))
-    assert (R, plan.rows_per_thread) == hk._XX_TILES[
-        "strings" if staged_string else "fixed"]
+    strings = any(c.dtype.is_string and (s is not None
+                                         or not staging.stage_strings)
+                  for c, s in zip(cols, plan.slots))
+    assert (R, plan.rows_per_thread) == (
+        staging.strings if strings else staging.fixed)
     assert plan.stage_bytes % 16 == 0 and plan.stage_bytes <= budget
-    assert 128 + hk._XX_STAGES * plan.stage_bytes <= H100_SMEM_BYTES
+    assert 128 + hk._STAGES * plan.stage_bytes <= H100_SMEM_BYTES
     # every column once, in chain order, no group across a launch
     assert plan.groups[0][0] == 0 and plan.groups[-1][1] == len(cols)
     for (a, b), (c, _) in zip(plan.groups, plan.groups[1:]):
@@ -107,23 +121,25 @@ def _check_plan(cols, plan, budget=hk._XX_STAGE_BUDGET):
     for a, b in plan.groups:
         used = 0
         for i in range(a, b):
-            need = _block_bytes(cols[i], R)
+            # read in place exactly where it does not stage
+            assert (plan.slots[i] is None) == (
+                not _staged(cols[i], R, staging, budget))
             if plan.slots[i] is None:
-                assert need > budget       # read only when it cannot fit
                 continue
             assert plan.slots[i] == used and used % 16 == 0
-            used += need
+            used += _block_bytes(cols[i], R)
         assert used <= plan.stage_bytes
     fields = plan.stage_fields(0, len(cols))
     firsts = {a for a, _ in plan.groups}
     for i, f in enumerate(fields):
-        assert bool(f & hk._XX_GROUP_START) == (i in firsts)
-        slot = f & (hk._XX_GROUP_START - 1)
+        assert bool(f & hk._GROUP_START) == (i in firsts)
+        slot = f & (hk._GROUP_START - 1)
         assert slot == (0 if plan.slots[i] is None
                         else plan.slots[i] // 16 + 1)
 
 
 def _strings(n, widths, seed=0, nulls=0.25):
+    """One string column per width W, lengths cycling through 0..W."""
     return [strings_with_lengths(
         (torch.arange(n) * 7 % (W + 1)).to(torch.int32), W, seed=seed + W,
         null_probability=nulls) for W in widths]
@@ -134,8 +150,8 @@ def test_xx_plan_fixed_keys():
     three keys a 32 KiB stage."""
     t = random_table([INT64] * 8, 300, seed=1, null_probability=0.25,
                      device="cpu")
-    plan = hk._xx_stage_plan(t.columns)
-    _check_plan(t.columns, plan)
+    plan = hk._stage_plan(t.columns, XX)
+    _check_plan(t.columns, plan, XX)
     assert (plan.tile_rows, plan.rows_per_thread) == (1024, 2)
     assert plan.groups == ((0, 3), (3, 6), (6, 8))
     assert all(s is not None for s in plan.slots)
@@ -147,13 +163,13 @@ def test_xx_plan_strings_over_the_limit_are_read():
     at 256 rows a tile, the second is read from device memory."""
     n = 40
     cols = _strings(n, (120, 124)) + _strings(n, (36,))
-    plan = hk._xx_stage_plan(cols)
-    _check_plan(cols, plan)
+    plan = hk._stage_plan(cols, XX)
+    _check_plan(cols, plan, XX)
     assert (plan.tile_rows, plan.rows_per_thread) == (256, 1)
     assert plan.slots[0] is not None and plan.slots[1] is None
     assert plan.groups == ((0, 2), (2, 3))
-    small = hk._xx_stage_plan(cols, budget=4096)
-    _check_plan(cols, small, budget=4096)
+    small = hk._stage_plan(cols, XX, budget=4096)
+    _check_plan(cols, small, XX, budget=4096)
     assert small.slots == (None, None, None)
 
 
@@ -164,14 +180,63 @@ def test_xx_plan_chains_past_max_columns(ncols):
                      null_probability=0.25, device="cpu")
     cols = list(t.columns[:700]) + _strings(n, (12, 200)) \
         + list(t.columns[700:])
-    plan = hk._xx_stage_plan(cols)
-    _check_plan(cols, plan)
+    plan = hk._stage_plan(cols, XX)
+    _check_plan(cols, plan, XX)
     starts = [a for a, _ in plan.groups]
     assert 800 in starts and plan.slots[701] is None
 
 
+def _mm3_plan_case(case):
+    """(columns, what K6's plan must give: tile rows, rows a thread,
+    groups (None: only that a group starts at column 800), the columns
+    read in place)."""
+    n = 40
+    if case == "int64_keys":
+        cols = random_table([INT64] * 8, n, seed=1, device="cpu").columns
+        return cols, (1024, 2, ((0, 3), (3, 6), (6, 8)), ())
+    if case == "partition_keys":
+        cols = random_table([INT32, INT16], n, seed=2,
+                            device="cpu").columns
+        return cols, (1024, 2, ((0, 2),), ())
+    if case == "string_int64":
+        cols = _strings(n, (64,)) + list(
+            random_table([INT64], n, seed=3, device="cpu").columns)
+        return cols, (256, 1, ((0, 2),), (0,))
+    if case == "strings_only":
+        cols = _strings(n, (0, 4, 120))
+        return cols, (256, 1, ((0, 3),), (0, 1, 2))
+    ncols = int(case.split("_")[1])
+    t = random_table(cycle_dtypes(HASH_FIXED, ncols - 2), n, seed=ncols,
+                     null_probability=0.25, device="cpu")
+    cols = _strings(n, (12,)) + list(t.columns) + _strings(n, (200,))
+    return cols, (256, 1, None, (0, ncols - 1))
+
+
+@pytest.mark.parametrize("case", ["int64_keys", "partition_keys",
+                                  "string_int64", "strings_only",
+                                  "chain_801", "chain_1600"])
+def test_mm3_plan(case):
+    """K6's plan: 1,024-row tiles of two rows a thread over fixed-width
+    chains, 256-row tiles of one a thread where there is a string, every
+    string read in place, every fixed-width column staged, and chains past
+    800 columns with a string in the first and the last launch."""
+    cols, (rows, per_thread, groups, in_place) = _mm3_plan_case(case)
+    plan = hk._stage_plan(cols, MM3)
+    _check_plan(cols, plan, MM3)
+    assert (plan.tile_rows, plan.rows_per_thread) == (rows, per_thread)
+    if groups is None:
+        assert hk.MAX_HASH_COLS in [a for a, _ in plan.groups]
+    else:
+        assert plan.groups == groups
+    assert tuple(i for i, s in enumerate(plan.slots) if s is None) \
+        == in_place
+    # K6 staged as K7 stages: the same groups over fixed-width columns
+    if not any(c.dtype.is_string for c in cols):
+        assert plan == hk._stage_plan(cols, XX)
+
+
 # ---------------------------------------------------------------------------
-# The replay: stage each tile as K7 does, hash it in the plan's order
+# The replay: stage each tile as K6 or K7 does, hash it in the plan's order
 # ---------------------------------------------------------------------------
 
 def _raw(t: torch.Tensor) -> torch.Tensor:
@@ -180,10 +245,11 @@ def _raw(t: torch.Tensor) -> torch.Tensor:
 
 
 class _Stage:
-    """One stage of the ring: the bytes a group's bulk copies fill."""
+    """One stage of the ring: the bytes a group's bulk copies fill, poison
+    where nothing was copied."""
 
     def __init__(self, nbytes):
-        self.bytes = torch.zeros(nbytes, dtype=torch.uint8)
+        self.bytes = torch.full((nbytes,), POISON, dtype=torch.uint8)
         self.owner = torch.full((nbytes,), -1, dtype=torch.int64)
 
     def copy(self, col_index, region, src: torch.Tensor, start, length):
@@ -196,11 +262,10 @@ class _Stage:
         chunks = ((addr + length + 15) & ~15) - (addr & ~15)
         assert chunks <= room, (chunks, room)
         lead = off + (addr & 15)
-        dst = slice(lead, lead + length)
         assert bool((self.owner[off:off + room] == -1).all()), \
             "two parts share stage bytes"
         self.owner[off:off + room] = col_index
-        self.bytes[dst] = _raw(src)[start:start + length]
+        self.bytes[lead:lead + length] = _raw(src)[start:start + length]
         return lead
 
 
@@ -238,15 +303,28 @@ def _rows(col, r0, m):
     return slice_table_dynamic(Table((col,)), r0, m).columns[0]
 
 
-def _replay(cols, seed, plan):
-    """K7's order over ``cols``: tile by tile; in each, group by group,
-    each staged column from its stage, the rest in place."""
+# each kernel's running hashes of m rows from a seed, its step over one
+# column's fields, and its output
+_CHAINS = {
+    "xxhash64_cols": (
+        lambda m, seed: (torch.zeros(m, dtype=torch.int64),
+                         torch.full((m,), seed & hk.M32, dtype=torch.int64)),
+        hk._xx_field, hk._xx_long),
+    "murmur3_cols": (
+        lambda m, seed: torch.full((m,), seed & hk.M32, dtype=torch.int64),
+        hk._mm3_field, hk._mm3_int),
+}
+
+
+def _replay(name, cols, seed, plan):
+    """Kernel ``name``'s order over ``cols``: tile by tile; in each, group by
+    group, each staged column from its stage, the rest in place."""
+    start, step, output = _CHAINS[name]
     n, R = cols[0].num_rows, plan.tile_rows
     out = []
     for r0 in range(0, n, R):
         m = min(R, n - r0)
-        zeros = torch.zeros(m, dtype=torch.int64)
-        h = (zeros, zeros + (seed & hk.M32))
+        h = start(m, seed)
         for a, b in plan.groups:
             stage = _Stage(plan.stage_bytes)
             for i in range(a, b):
@@ -254,10 +332,10 @@ def _replay(cols, seed, plan):
                 if plan.slots[i] is None:
                     tile = _rows(col, r0, m)
                 else:
-                    tile = _staged_tile(col, i, hk._xx_regions(col, R), stage,
-                                        plan.slots[i], r0, m)
-                h = hk._xx_field(tile, h)
-        out.append(hk._xx_long(h))
+                    tile = _staged_tile(col, i, hk._stage_regions(col, R),
+                                        stage, plan.slots[i], r0, m)
+                h = step(tile, h)
+        out.append(output(h))
     return torch.cat(out)
 
 
@@ -286,15 +364,15 @@ def _replay_cases():
     }
 
 
-@pytest.mark.parametrize("budget", [hk._XX_STAGE_BUDGET, 4096, 2400])
+@pytest.mark.parametrize("budget", [hk._STAGE_BUDGET, 4096, 2400])
 @pytest.mark.parametrize("case", sorted(_replay_cases()))
 def test_replay_of_the_plan_equals_the_plain_version(case, budget):
-    """Small budgets give many groups and strings read in place."""
+    """K7: small budgets give many groups and strings read in place."""
     cols = _replay_cases()[case]
-    plan = hk._xx_stage_plan(cols, budget=budget)
-    _check_plan(cols, plan, budget)
+    plan = hk._stage_plan(cols, XX, budget=budget)
+    _check_plan(cols, plan, XX, budget)
     for seed in (42, 7):
-        assert torch.equal(_replay(cols, seed, plan),
+        assert torch.equal(_replay("xxhash64_cols", cols, seed, plan),
                            hk.xxhash64_cols_plain(cols, seed)), (case, seed)
 
 
@@ -306,3 +384,58 @@ def test_odd_offset_views_start_inside_a_chunk():
     assert any(c.lens.data_ptr() % 16 for c in cols if c.dtype.is_string)
     shifted = _replay_cases()["shifted_masks"]
     assert all(c.validity.data_ptr() % 16 for c in shifted)
+
+
+# K6's string widths: every length 0..W, 120 past K7's staging limit
+MM3_WIDTHS = (0, 4, 12, 36, 68, 120)
+
+
+@functools.lru_cache(maxsize=1)
+def _mm3_replay_cases():
+    strings_rows, fixed_rows = MM3.strings[0], MM3.fixed[0]
+    n = 2 * strings_rows + 88
+    t = random_table(HASH_FIXED, n, seed=6, null_probability=0.25,
+                     device="cpu")
+    strings = _strings(n, MM3_WIDTHS, seed=7)
+    whole = Table(tuple(strings) + tuple(t.columns[:4]))
+    cases = {
+        "lengths": list(strings) + [t.columns[0]],
+        "all_null": _strings(300, (36, 68), seed=8, nulls=1.0) + list(
+            random_table([INT64, INT16], 300, seed=8, null_probability=1.0,
+                         device="cpu").columns),
+        # chars, lengths and values that start inside a 16-byte chunk
+        "odd_offsets": list(slice_table(whole, 3, n).columns),
+        "fixed": list(random_table(HASH_FIXED, fixed_rows + 1, seed=9,
+                                   device="cpu").columns),
+    }
+    for rows, label in ((strings_rows, "string"), (fixed_rows, "fixed")):
+        for d in (-1, 1):
+            fixed = list(random_table([INT64, INT32, FLOAT32], rows + d,
+                                      seed=11 + d, device="cpu").columns)
+            cols = (_strings(rows + d, (36, 64), seed=10 + d) + fixed[:1]
+                    if label == "string" else fixed)
+            cases[f"{label}_tile_rows_{'minus' if d < 0 else 'plus'}_1"] = \
+                cols
+    return cases
+
+
+@pytest.mark.parametrize("route", ["in_place", "whole_tile"])
+@pytest.mark.parametrize("budget", [hk._STAGE_BUDGET, 4096])
+@pytest.mark.parametrize("case", sorted(_mm3_replay_cases()))
+def test_mm3_replay_equals_the_plain_version(case, budget, route):
+    """K6 by its plan (strings read in place) and by K7's staging (a
+    string's whole tile staged where it fits), from stages that hold poison
+    wherever no copy landed: the hash is murmur3_cols_plain's, whatever
+    lies past a row's length.  Every length 0..W, all-null tiles, views at
+    odd offsets and row counts one off the tiles."""
+    cols = _mm3_replay_cases()[case]
+    staging = MM3 if route == "in_place" else dataclasses.replace(
+        MM3, stage_strings=True)
+    plan = hk._stage_plan(cols, staging, budget=budget)
+    _check_plan(cols, plan, staging, budget)
+    if case == "odd_offsets":
+        assert any(c.chars2d.data_ptr() % 16 for c in cols
+                   if c.dtype.is_string)
+    for seed in (42, 7):
+        assert torch.equal(_replay("murmur3_cols", cols, seed, plan),
+                           hk.murmur3_cols_plain(cols, seed)), (case, seed)

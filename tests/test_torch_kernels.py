@@ -7,6 +7,8 @@ JAX it runs alone:
     python -m pytest --noconftest tests/test_torch_kernels.py -m gpu -q
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -330,10 +332,78 @@ def test_xxhash64_staging_edges(cuda, n):
         for budget in (64, 2200, 4096):
             got = torch.empty(n, dtype=torch.int64, device=cuda)
             hk._launch_hash("xxhash64_cols", cols, 42, got,
-                            hk._xx_stage_plan(cols, budget=budget))
+                            hk._stage_plan(cols, hk._STAGING["xxhash64_cols"],
+                                           budget=budget))
             assert torch.equal(got, plain), budget
         assert torch.equal(hk.murmur3_cols(cols, 42),
                            hk.murmur3_cols_plain(cols, 42))
+
+
+# K6's string widths: every length on both sides of each 16-byte boundary
+# up to 124 bytes, and pitches on both sides of the whole-tile staging limit
+# (120 staged, 124 read in place, at 256 rows a tile and 32 KiB a stage)
+MM3_WIDTHS = (0, 4, 16, 32, 36, 64, 68, 120, 124)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 255, 257, 6 * 1024 + 557])
+def test_murmur3_string_routes(cuda, n):
+    """K6 over strings of every length 0..W, read in place (its plan) and
+    staged whole (K7's route), over column views whose values, masks,
+    lengths or chars start inside a 16-byte chunk (rows of pitch 36 and 68
+    at every offset in their chunk), row counts off the 256- and 1,024-row
+    tiles, and plans that stage nothing or give small groups, bit for
+    bit."""
+    m = n + 11
+    t = random_table(HASH_FIXED, m, seed=n, null_probability=0.25,
+                     device=cuda)
+    strings = [strings_with_lengths(
+        (torch.arange(m, device=cuda) * 19 % (W + 1)).to(torch.int32), W,
+        seed=W, null_probability=0.25) for W in MM3_WIDTHS]
+    whole = Table(tuple(t.columns) + tuple(strings))
+    odd = slice_table(whole, 3, 3 + n).columns
+    shifted = slice_table_dynamic(whole, 8, n).columns
+    assert any(c.chars2d.data_ptr() % 16 for c in odd[-len(strings):])
+    mm3 = hk._STAGING["murmur3_cols"]
+    whole_tile = dataclasses.replace(mm3, stage_strings=True)
+    for cols in (odd, shifted, [odd[8], odd[0], *odd[-3:]], strings):
+        if cols is strings:
+            cols = list(slice_table(Table(cols), 0, n).columns)
+        plain = hk.murmur3_cols_plain(cols, 42)
+        assert torch.equal(hk.murmur3_cols(cols, 42), plain)
+        assert all(s is None for c, s in
+                   zip(cols, hk._stage_plan(cols, mm3).slots)
+                   if c.dtype.is_string)
+        slots = hk._stage_plan(cols, whole_tile).slots
+        assert slots[-2] is not None and slots[-1] is None
+        for staging, budget in ((mm3, 64), (mm3, 2200),
+                                (whole_tile, hk._STAGE_BUDGET),
+                                (whole_tile, 16384)):
+            got = torch.empty(n, dtype=torch.int32, device=cuda)
+            hk._launch_hash("murmur3_cols", cols, 42, got,
+                            hk._stage_plan(cols, staging, budget=budget))
+            assert torch.equal(got, plain), (staging, budget)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ncols", [801, 1600])
+def test_murmur3_chains_with_strings_in_the_first_and_last_launch(cuda,
+                                                                  ncols):
+    """K6 past MAX_HASH_COLS columns with a string first and one last: each
+    launch seeded per row by the previous one's hashes."""
+    n = 6 * 1024 + 557
+    strings = [strings_with_lengths(
+        (torch.arange(n, device=cuda) * 19 % (W + 1)).to(torch.int32), W,
+        seed=W, null_probability=0.25) for W in (12, 68)]
+    t = random_table(cycle_dtypes(HASH_FIXED, ncols - 2), n, seed=ncols,
+                     null_probability=0.25, device=cuda)
+    cols = [strings[0], *t.columns, strings[1]]
+    plan = hk._stage_plan(cols, hk._STAGING["murmur3_cols"])
+    assert plan.slots[0] is None and plan.slots[-1] is None
+    kernels.reset_launches()
+    got = hk.murmur3_cols(cols, 42)
+    assert kernels.launches["murmur3_cols"] == -(-ncols // hk.MAX_HASH_COLS)
+    assert torch.equal(got, hk.murmur3_cols_plain(cols, 42))
 
 
 @pytest.mark.gpu
