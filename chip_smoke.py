@@ -28,6 +28,16 @@ launch count set to 0 just before the path and read just after:
   1M rows (one 1624-byte-row batch, decoded by one K2 launch at that
   stride, and ``compact_rows_host`` of a 100,000-row slice) and 2M rows
   (two batches of 1,000,000 rows);
+- the same axis with Arrow-layout strings (``arrow_strings_1m``): 1M rows
+  to compact JCUDF rows (one compact encode kernel launch, about 1.2 GB)
+  and back (one K2 launch over the gathered fixed sections and one string
+  gather kernel launch), a 100,000-row slice's blob against
+  ``compact_rows_host`` of its padded encode, murmur3 and xxhash64 of the
+  Arrow table against the padded table's, ``get_json_object`` over
+  100,000 Arrow event-log documents against the padded column's answer;
+  and compact rows at edge shapes (``compact_edges``: fixed_end of every
+  residue mod 8, lengths 0..67 at odd offsets, batches forced by
+  ``size_limit``, zero rows, strings only), each against the CPU run;
 - the two-stage encode: ``convert_to_rows`` of 6M rows of the 212-column
   schema, whose resident pack passes the 4 GiB cap, in six batches of one
   K3 launch each, every batch equal to K1's rows for the same rows;
@@ -64,7 +74,9 @@ launch count set to 0 just before the path and read just after:
   tick's time split into stacking, staging, kernel, fetch and slicing.
 
 Every kernel is held against its plain PyTorch version on the card, bit for
-bit, at every one of those shapes; then against 64-bit offsets (a string
+bit, at every one of those shapes (the compact encode and the string
+gather, which replace no TPU kernel, among them); then against 64-bit
+offsets (a string
 column of 24M rows of 96 bytes, a filter of 2^31 + 64 bits) and at edge
 shapes, types and null patterns (K3 at odd starts, the padded decode at
 string widths 0, 4 and 32, hash chains of 801 and 1600 columns, K9 over
@@ -214,6 +226,11 @@ KERNELS = (  # name, the TPU kernel it replaces
     ("rows_to_planes", "spark_rapids_jni_tpu/ops/pallas_kernels.py:210"),
     ("to_rows_cols", "spark_rapids_jni_tpu/ops/row_kernels.py:63"),
     ("from_rows_cols", "spark_rapids_jni_tpu/ops/row_kernels.py:149"),
+    # no TPU counterpart: the JAX package does this work in XLA
+    ("compact_encode", "none (XLA: spark_rapids_jni_tpu/ops/"
+                       "row_conversion.py:1164)"),
+    ("string_gather", "none (XLA: spark_rapids_jni_tpu/ops/"
+                      "row_conversion.py:1419)"),
 )
 
 
@@ -1101,6 +1118,313 @@ def phase_strings_2m(errs):
          batch_bytes=[b.data.numel() for b in batches], launches=launches,
          roundtrip_bit_exact=True, equal_plain=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Arrow-layout strings and compact rows
+# ---------------------------------------------------------------------------
+
+def _arrow_of(table):
+    """The same table with its string columns in Arrow layout."""
+    from spark_rapids_jni_tpu_torch import Table
+    return Table(tuple(c.to_arrow() for c in table.columns))
+
+
+def _check_arrow_equal(want, got, what):
+    """Round trip bit-exact: values and nulls by bits, and each Arrow string
+    column's offsets (``want``'s rebased to 0) and chars exactly."""
+    from spark_rapids_jni_tpu_torch.table import assert_tables_equivalent
+    assert_tables_equivalent(want, got, check_nulls=False)
+    for i, (a, b) in enumerate(zip(want.columns, got.columns)):
+        if a.dtype.is_string:
+            lo, hi = int(a.offsets[0]), int(a.offsets[-1])
+            check(torch.equal(a.offsets - lo, b.offsets)
+                  and torch.equal(a.chars[lo:hi], b.chars),
+                  f"{what}: string column {i} offsets or chars")
+
+
+def _encode_args(table, layout, start, end, plan):
+    """The compact encode's arguments for table rows [start, end), with the
+    table's (row sizes, column offsets) ``plan``."""
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as prc
+    return prc._compact_batch_inputs(table, layout, start, end, *plan)
+
+
+def _hold_compact(eargs, layout, errs, what):
+    """The compact encode over ``eargs``, K2 over its rows' fixed sections
+    and the string gather over its pairs, each against its plain version;
+    returns the rows and the gather's arguments."""
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as prc
+    blob = kernels.compact_encode(*eargs)
+    plain = kernels.compact_encode_plain(*eargs)
+    errs["compact_encode"] = max(errs["compact_encode"],
+                                 max_abs_err(blob, plain))
+    check(torch.equal(blob, plain), f"compact encode != plain: {what}")
+    del plain
+    gargs = prc._compact_decode(blob, eargs[2], layout)[2]
+    _hold_decode(prc._compact_fixed_sections(blob, eargs[2], layout),
+                 layout, errs, f"compact fixed sections: {what}")
+    for got, want in zip(kernels.string_gather(*gargs),
+                         kernels.string_gather_plain(*gargs)):
+        errs["string_gather"] = max(errs["string_gather"],
+                                    max_abs_err(got, want))
+        check(torch.equal(got, want), f"string gather != plain: {what}")
+    return blob, gargs
+
+
+def _compact_bytes(eargs) -> int:
+    """Bytes the compact encode must move: each row's fixed bytes, the row
+    offsets and each column's offsets read, each char read, the rows
+    written."""
+    fixed, fe, row_offsets, total, strings = eargs
+    n = fixed.shape[0]
+    return (n * fe + 4 * (n + 1) * (1 + len(strings))
+            + sum(s[0].numel() for s in strings) + total)
+
+
+def _gather_bytes(gargs) -> int:
+    """Bytes the string gather must move: the row offsets and each
+    column's pair and output offsets read, each char read and written."""
+    _, row_offsets, pairs, totals = gargs
+    n = row_offsets.shape[0] - 1
+    return 4 * (n + 1) + len(pairs) * (12 * n + 4) + 2 * sum(totals)
+
+
+def _byte_bound(nbytes: int) -> dict:
+    return {"bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
+def phase_arrow_strings_1m(errs, timing):
+    """The 155-column string axis at 1M rows with Arrow-layout strings:
+    convert_to_rows to compact rows (one compact encode a batch) and
+    convert_from_rows back (one K2 and one string gather a batch), bit for
+    bit; the new kernels and K2 against their plain versions on a
+    100,000-row slice and on the whole batch; that slice's blob against
+    compact_rows_host of its padded encode; murmur3 and xxhash64 of the
+    Arrow table against the padded table's; get_json_object over Arrow
+    event-log documents against the padded column's answer; and the times
+    of the entry points and the kernels."""
+    from spark_rapids_jni_tpu_torch import Column
+    from spark_rapids_jni_tpu_torch.ops import (
+        compact_rows_host, compute_row_layout, convert_from_rows,
+        convert_to_rows, get_json_object, murmur3_hash, xxhash64,
+    )
+    from spark_rapids_jni_tpu_torch.ops import kernels, row_mxu
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as prc
+    from spark_rapids_jni_tpu_torch.table import slice_table
+    from spark_rapids_jni_tpu_torch.utils import json_event_docs
+    reset_peak()
+    padded = _string_table(N_1M, seed=44)
+    table = _arrow_of(padded)
+    dtypes = table.dtypes
+    layout = compute_row_layout(dtypes)
+
+    def run():
+        b = convert_to_rows(table)
+        return b, [convert_from_rows(x, dtypes) for x in b]
+
+    (batches, parts), launches = _read_path(kernels, run)
+    nb = len(batches)
+    check(launches["compact_encode"] == nb
+          and launches["decode_planes"] == nb
+          and launches["string_gather"] == nb
+          and launches["grouped_encode"] == 0,
+          f"arrow strings launches {launches} for {nb} batches")
+    rows = batches[0]
+    check(nb == 1 and not rows.is_padded and rows.data.dim() == 1,
+          f"arrow encode gave {[b.data.shape for b in batches]}")
+    _check_arrow_equal(table, parts[0], "arrow strings 1M")
+    del parts
+    blob_bytes = rows.data.numel()
+
+    # the kernels on a 100,000-row slice that starts at an odd row, and its
+    # blob against the padded encode of the same rows, compacted on the
+    # host
+    a = min(12_345, N_1M - N_COMPACT)
+    b = a + N_COMPACT
+    sub = slice_table(table, a, b)
+    eargs = _encode_args(sub, layout, 0, N_COMPACT,
+                         prc._compact_plan(sub, layout))
+    sub_blob, _ = _hold_compact(eargs, layout, errs, "100,000-row slice")
+    [sub_rows] = convert_to_rows(sub)
+    check(torch.equal(sub_rows.data, sub_blob), "slice blob != the kernel's")
+    t0 = time.perf_counter()
+    [padded_rows] = convert_to_rows(slice_table(padded, a, b))
+    host = compact_rows_host(padded_rows, dtypes)
+    host_s = time.perf_counter() - t0
+    check(torch.equal(host.data, sub_rows.data)
+          and torch.equal(host.offsets, sub_rows.offsets),
+          "compact encode != compact_rows_host of the padded encode")
+    del sub, sub_blob, sub_rows, padded_rows, host, eargs
+
+    # the kernels at the whole batch's shapes: held, then timed
+    eargs = _encode_args(table, layout, 0, N_1M,
+                         prc._compact_plan(table, layout))
+    blob, gargs = _hold_compact(eargs, layout, errs, "1M batch")
+    check(torch.equal(blob, rows.data), "1M blob != the entry point's")
+    del blob
+    fixed = prc._compact_fixed_sections(rows.data, rows.offsets, layout)
+    timing["compact_encode"] = {
+        "rows": N_1M, "ms": median_ms(lambda: kernels.compact_encode(*eargs),
+                                      flush=True),
+        "plain_ms": median_ms(lambda: kernels.compact_encode_plain(*eargs),
+                              runs=3, warmup=1),
+        **_byte_bound(_compact_bytes(eargs))}
+    timing["string_gather"] = {
+        "rows": N_1M, "ms": median_ms(lambda: kernels.string_gather(*gargs),
+                                      flush=True),
+        "plain_ms": median_ms(lambda: kernels.string_gather_plain(*gargs),
+                              runs=3, warmup=1),
+        **_byte_bound(_gather_bytes(gargs))}
+    k2_bytes = (N_1M * kernels._decode_load_bytes(layout)
+                + 4 * row_mxu._inverse_plan(layout)[0].num_words * N_1M
+                + layout.num_columns * N_1M // 8)
+    timing["decode_planes_compact_1m"] = {
+        "rows": N_1M, "row_stride": fixed.shape[1],
+        "ms": median_ms(lambda: kernels.decode_planes(fixed, layout),
+                        flush=True), **_byte_bound(k2_bytes)}
+    del fixed, eargs, gargs
+    ends = _table_bytes(padded) - sum(
+        c.chars2d.numel() - int(c.lens.to(torch.int64).sum())
+        for c in padded.columns if c.dtype.is_string) + blob_bytes
+    timing["arrow_strings_1m"] = {
+        "rows": N_1M, "blob_bytes": blob_bytes,
+        "convert_to_rows_ms": median_ms(lambda: convert_to_rows(table),
+                                        runs=5, warmup=1),
+        "convert_from_rows_ms": median_ms(
+            lambda: convert_from_rows(rows, dtypes), runs=5, warmup=1),
+        **_byte_bound(ends)}
+    emit(phase="profile_arrow_strings_1m",
+         encode=profile_breakdown(lambda: convert_to_rows(table)),
+         decode=profile_breakdown(lambda: convert_from_rows(rows, dtypes)))
+    del batches, rows
+
+    # hashes: the Arrow table against the padded one
+    total = dict.fromkeys(kernels.launches, 0)
+    for fn in (murmur3_hash, xxhash64):
+        got, counts = _read_path(kernels, lambda: fn(table))
+        check(torch.equal(got, fn(padded)), f"{fn.__name__} of the Arrow "
+                                            f"table != the padded table's")
+        for name, v in counts.items():
+            total[name] += v
+        timing["arrow_strings_1m"][f"{fn.__name__}_ms"] = median_ms(
+            lambda: fn(table), runs=5, warmup=1)
+        timing["arrow_strings_1m"][f"{fn.__name__}_padded_ms"] = median_ms(
+            lambda: fn(padded), runs=5, warmup=1)
+    check(total["murmur3_cols"] == 1 and total["xxhash64_cols"] == 1,
+          f"arrow hash launches {total}")
+    del padded
+
+    # get_json_object over Arrow documents against the padded column
+    docs, _ = json_event_docs(N_COMPACT, seed=45)
+    arrow_docs = Column.strings(docs, device=CARD)
+    padded_docs = Column.strings_padded(docs, device=CARD)
+    out, counts = _read_path(kernels,
+                             lambda: get_json_object(arrow_docs, "$.user.id"))
+    want = get_json_object(padded_docs, "$.user.id")
+    check(counts["gjo_scan"] == 1, f"arrow get_json launches {counts}")
+    check(torch.equal(out.chars2d, want.chars2d)
+          and torch.equal(out.lens, want.lens)
+          and torch.equal(out.validity, want.validity),
+          "get_json_object of Arrow documents != the padded column's")
+    for name, v in counts.items():
+        total[name] += v
+    timing["arrow_strings_1m"]["get_json_object_100k_ms"] = median_ms(
+        lambda: get_json_object(arrow_docs, "$.user.id"), runs=5, warmup=1)
+    for name, v in launches.items():
+        total[name] += v
+    emit(phase="arrow_strings_1m", rows=N_1M, columns=len(dtypes),
+         fixed_end=layout.fixed_end, blob_bytes=blob_bytes, batches=nb,
+         launches=launches, hash_and_get_json_launches=counts,
+         roundtrip_bit_exact=True, equal_plain=True,
+         equal_compact_rows_host=True, compact_rows_host_seconds=host_s,
+         hashes_equal_padded=True, get_json_equal_padded=True,
+         doc_rows=N_COMPACT, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return total
+
+
+def _edge_table(n, k, seed, int16=False):
+    """Three Arrow string columns of lengths 0..67 whose chars start at odd
+    offsets (each column's buffer has 1, 3 or 5 bytes before its first
+    row's), an INT64 (and an INT16) and k INT8 columns (fixed_end 33 + k,
+    or 35 + k with the INT16, and the validity bytes), 25% nulls."""
+    from spark_rapids_jni_tpu_torch import INT8, INT16, INT64, Column, Table
+    from spark_rapids_jni_tpu_torch.table import pack_bools
+    from spark_rapids_jni_tpu_torch.utils import random_table
+    fixed = random_table([INT64] + [INT16] * int16 + [INT8] * k, n,
+                         seed=seed, null_probability=0.25, device=CARD)
+    gen = torch.Generator(device=CARD)
+    gen.manual_seed(seed)
+    strs = []
+    for j in range(3):
+        lens = (torch.arange(n, device=CARD) * (7 + j) + j) % 68
+        offsets = torch.full((n + 1,), 2 * j + 1, dtype=torch.int64,
+                             device=CARD)
+        offsets[1:] += torch.cumsum(lens, 0)
+        chars = torch.randint(0, 256, (int(offsets[-1]) + 3,),
+                              dtype=torch.uint8, generator=gen, device=CARD)
+        strs.append(Column.arrow_strings(
+            offsets.to(torch.int32), chars,
+            pack_bools(torch.rand(n, generator=gen, device=CARD) >= 0.25)))
+    return Table((strs[0], strs[1], fixed.columns[0], strs[2],
+                  *fixed.columns[1:]))
+
+
+def phase_compact_edges(errs):
+    """Compact rows at edge shapes, for correctness only: fixed_end of
+    every residue mod 8 (33 to 41), lengths 0..67 at odd offsets on both
+    sides, a slice from an odd row in batches forced by size_limit, zero
+    rows, a table of strings only beside a padded column; each batch
+    byte-equal to the CPU run of the entry point, each kernel against its
+    plain version, each decode bit-exact."""
+    from spark_rapids_jni_tpu_torch import Table
+    from spark_rapids_jni_tpu_torch.ops import (
+        compute_row_layout, convert_from_rows, convert_to_rows,
+    )
+    from spark_rapids_jni_tpu_torch.ops import row_conversion as prc
+    from spark_rapids_jni_tpu_torch.table import slice_table
+    from spark_rapids_jni_tpu_torch.utils import strings_with_lengths
+    cases, batches_seen = 0, 0
+    tables = []
+    for k, int16 in [(k, False) for k in range(8)] + [(3, True)]:
+        t = _edge_table(3001, k, seed=100 + k, int16=int16)
+        tables += [(t, 1 << 30), (slice_table(t, 7, 3001), 64 * 240),
+                   (slice_table(t, 9, 9), 1 << 30)]
+    t = _edge_table(501, 0, seed=99)
+    strings_only = Table((t.columns[0], t.columns[1], t.columns[3],
+                          strings_with_lengths(
+                              (torch.arange(501, device=CARD) % 61)
+                              .to(torch.int32), 60, seed=3)))
+    tables.append((strings_only, 32 * 320))
+    for tt, limit in tables:
+        layout = compute_row_layout(tt.dtypes)
+        what = f"{tt.num_rows} rows, fixed_end {layout.fixed_end}"
+        batches = convert_to_rows(tt, size_limit=limit)
+        want = convert_to_rows(tt.to("cpu"), size_limit=limit, device="cpu")
+        check([b.num_rows for b in batches] == [b.num_rows for b in want],
+              f"compact batches differ from the CPU's: {what}")
+        arrow = Table(tuple(c.to_arrow() for c in tt.columns))
+        plan = prc._compact_plan(arrow, layout)
+        start = 0
+        for g, w in zip(batches, want):
+            check(torch.equal(g.data.cpu(), w.data)
+                  and torch.equal(g.offsets.cpu(), w.offsets),
+                  f"compact blob != the CPU's: {what}, batch at {start}")
+            end = start + g.num_rows
+            blob, _ = _hold_compact(
+                _encode_args(arrow, layout, start, end, plan), layout, errs,
+                f"{what}, batch at {start}")
+            check(torch.equal(blob, g.data), f"batch != its kernel: {what}")
+            back = convert_from_rows(g, tt.dtypes)
+            _check_arrow_equal(slice_table(arrow, start, end), back, what)
+            start = end
+            cases += 1
+        batches_seen = max(batches_seen, len(batches))
+    check(batches_seen > 2, f"no edge table took several batches")
+    emit(phase="compact_edges", cases=cases, most_batches=batches_seen,
+         equal_cpu=True, equal_plain=True, roundtrip_bit_exact=True)
 
 
 def _pack_bytes(table, layout, size: int) -> int:
@@ -2505,6 +2829,13 @@ def main():
     torch.cuda.empty_cache()
     add_launches(phase_strings_2m(errs))
     torch.cuda.empty_cache()
+    add_launches(phase_arrow_strings_1m(errs, timing))
+    torch.cuda.empty_cache()
+    phase_compact_edges(errs)
+    torch.cuda.empty_cache()
+    for name in ("compact_encode", "string_gather"):
+        check(path_launches[name] > 0,
+              f"{name} never launched on its path: {path_launches}")
     add_launches(phase_pack_planes_6m(dtypes, errs, timing))
     torch.cuda.empty_cache()
     check(path_launches["pack_planes"] > 0,
@@ -2637,7 +2968,9 @@ def main():
             "name": name, "route": "cuda",
             "source": ("spark_rapids_jni_tpu_torch/csrc/"
                        + kernels.SOURCES[name]),
-            "replaces": replaces, "launches": path_launches[name],
+            "replaces": replaces,
+            "tpu_counterpart": not replaces.startswith("none"),
+            "launches": path_launches[name],
             "max_abs_err": errs[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": tm.get("library_ms")})

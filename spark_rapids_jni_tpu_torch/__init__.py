@@ -4,11 +4,13 @@ It runs on one NVIDIA Hopper card (sm_90a).  The JAX package beside it is
 the reference; this package imports neither JAX nor that package.
 
 - ``table``: ``Column``/``Table`` containers as torch tensors, fixed-width
-  (decimal128 included) and dense-padded string columns; ``ops.decimal``
+  (decimal128 included) and string columns, dense-padded or in Arrow
+  layout; ``ops.decimal``
   builds decimal128 columns from Python ints and reads them back.
 - ``ops.row_conversion``: JCUDF row-format <-> column conversion, the
   flagship op (reference ``src/main/cpp/src/row_conversion.cu``), for
-  fixed-width and dense-padded string tables, and ``compact_rows_host``;
+  fixed-width tables, dense-padded string tables and compact rows of
+  tables with Arrow-layout strings, and ``compact_rows_host``;
   ``impl="pallas"`` takes the word-plane engine of ``ops.plane_rows``,
   ``impl="xla"`` the generic torch engine; ``ops.row_kernels`` is the
   per-column-block engine (``to_rows_fixed``/``from_rows_fixed``, with
@@ -20,10 +22,11 @@ the reference; this package imports neither JAX nor that package.
 - ``ops.spark_bloom``: Spark's wire-compatible bloom filter and its probe
   on the device (``might_contain_device``).
 - ``ops.get_json``: Spark's ``get_json_object`` for object-key and
-  ``[i]`` subscript paths over dense-padded string columns (wildcards and
-  Arrow-layout columns wait for a later slice).
+  ``[i]`` subscript paths over string columns (wildcards wait for a later
+  slice).
 - ``ops.kernels``: the build of the hand-written CUDA kernels (``csrc/``)
-  and the row-conversion kernels' wrappers and plain versions;
+  and the row-conversion kernels' wrappers and plain versions, the compact
+  rows' encode and string gather among them;
   ``ops.hash_kernels``: those of the hash and bloom kernels; the JSON path
   automaton's are in ``ops.get_json``.
 - ``serve``: the multi-tenant serving runtime (a continuous-batching
@@ -32,8 +35,8 @@ the reference; this package imports neither JAX nor that package.
 - ``runtime``: the shape-bucket grid and its pad and unpad helpers,
   coalesced host <-> device staging
   and the failure taxonomy the serving runtime uses.
-- ``utils.datagen``: seeded random tables (fixed-width and padded string
-  columns), made on the device.
+- ``utils.datagen``: seeded random tables (fixed-width columns, and
+  string columns padded or in Arrow layout), made on the device.
 - ``interop``: tables, backings and row batches to and from numpy, to hold
   the port against the JAX package on the same data.
 

@@ -3,14 +3,18 @@
 Both packages compute on the same data only if it crosses bit for bit.  The
 JAX package's tables are handed over as numpy arrays, one tuple per column:
 ``(dtype name, values, packed validity or None)`` for a fixed-width column
-(a decimal128 column's values are its uint32 ``[n, 4]`` limbs) and
-``("string", chars2d, lens, packed validity or None)`` for a dense-padded
-string column, the name being ``repr`` of the column type, which both
-packages print alike.  Its ``GroupedColumns`` cross as uint32
-planes plus packed masks, its ``RowsColumn`` batches (fixed-width or
-dense-padded) as their bytes and offsets with the padded layout's row size
-and string widths.  Nothing here imports JAX: the caller does the
-``np.asarray``.
+(a decimal128 column's values are its uint32 ``[n, 4]`` limbs), the name
+being ``repr`` of the column type, which both packages print alike.  A
+string column crosses as four entries, ``("string", chars2d, lens, packed
+validity or None)`` when dense-padded and ``("string", offsets, chars,
+packed validity or None)`` in Arrow layout: the second array's ``ndim``
+tells them apart (2 for ``chars2d``, 1 for the int32 offsets ``[n + 1]``).
+Arrow offsets leave the port rebased to 0, with only the column's own
+chars.  Its ``GroupedColumns`` cross as uint32 planes plus packed masks,
+its ``RowsColumn`` batches as their bytes and offsets, with the padded
+layout's row size and string widths for a dense-padded batch and neither
+for a fixed-width or compact one.  Nothing here imports JAX: the caller
+does the ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -41,23 +45,29 @@ def _column(arrays: ColumnArrays, dev: torch.device) -> Column:
         _, values, validity = arrays
         return Column.from_packed_numpy(values, _dtype(name), validity, dev)
     if len(arrays) != 4:
-        raise NotImplementedError(
-            "only dense-padded string columns (chars2d, lens) cross; "
-            "Arrow-layout strings wait for a later strings slice of the "
-            "port")
-    _, chars2d, lens, validity = arrays
+        raise ValueError(
+            f"a string column crosses as (\"string\", chars2d, lens, "
+            f"validity) or (\"string\", offsets, chars, validity), got "
+            f"{len(arrays)} entries")
+    _, first, second, validity = arrays
     if validity is not None:
         validity = torch.from_numpy(np.array(validity, np.uint8)).to(dev)
+    if np.ndim(first) == 1:
+        return Column.arrow_strings(
+            torch.from_numpy(np.array(first, np.int32)).to(dev),
+            torch.from_numpy(np.array(second, np.uint8)).to(dev), validity)
     return Column.padded_strings(
-        torch.from_numpy(np.array(chars2d, np.uint8)).to(dev),
-        torch.from_numpy(np.array(lens, np.int32)).to(dev), validity)
+        torch.from_numpy(np.array(first, np.uint8)).to(dev),
+        torch.from_numpy(np.array(second, np.int32)).to(dev), validity)
 
 
 def table_from_numpy_columns(columns: Sequence[ColumnArrays],
                              device=None) -> Table:
     """A port table from per-column tuples: ``(dtype name, values [n],
-    packed validity uint8 [ceil(n/8)] or None)``, or ``("string", chars2d
-    uint8 [n, W], lens int32 [n], packed validity or None)``."""
+    packed validity uint8 [ceil(n/8)] or None)``, ``("string", chars2d
+    uint8 [n, W], lens int32 [n], packed validity or None)`` or
+    ``("string", offsets int32 [n + 1], chars uint8 flat, packed validity
+    or None)``."""
     dev = resolve_device(device)
     return Table(tuple(_column(c, dev) for c in columns))
 
@@ -67,9 +77,14 @@ def table_to_numpy_columns(table: Table) -> List[ColumnArrays]:
     out = []
     for c in table.columns:
         validity = None if c.validity is None else c.validity.cpu().numpy()
-        if c.dtype.is_string:
+        if c.dtype.is_string and c.is_padded:
             out.append((repr(c.dtype), c.chars2d.cpu().numpy(),
                         c.lens.cpu().numpy(), validity))
+        elif c.dtype.is_string:
+            offs = c.offsets.cpu().numpy()
+            lo, hi = int(offs[0]), int(offs[-1])
+            out.append((repr(c.dtype), offs - lo,
+                        c.chars[lo:hi].cpu().numpy(), validity))
         else:
             out.append((repr(c.dtype), c.to_numpy(), validity))
     return out
@@ -102,7 +117,7 @@ def rows_from_numpy(data: np.ndarray, offsets: np.ndarray,
                     device=None) -> RowsColumn:
     """A port batch from uint8 row bytes (``[n, row_bytes]`` or flat),
     int32 ``[n + 1]`` offsets and, for a dense-padded batch, its row size
-    and string widths."""
+    and string widths (a fixed-width or compact batch has neither)."""
     dev = resolve_device(device)
     widths = None if str_widths is None else tuple(int(w) for w in
                                                    str_widths)

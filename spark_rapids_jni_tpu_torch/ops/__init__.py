@@ -1,10 +1,11 @@
-"""Ops of the PyTorch port: row conversion (fixed-width and dense-padded
-string tables; ``impl="pallas"`` takes the word-plane engine of
+"""Ops of the PyTorch port: row conversion (fixed-width tables, and string
+tables as dense-padded or compact rows; ``impl="pallas"`` takes the
+word-plane engine of
 :mod:`.plane_rows`, ``impl="xla"`` the generic engine; :mod:`.row_kernels`
 is the per-column-block engine), decimal128 columns (:mod:`.decimal`),
 Spark hashing and hash partitioning, the Spark bloom
-filter, and ``get_json_object`` (key and subscript paths over dense-padded
-string columns).  The serving runtime over the row ops is
+filter, and ``get_json_object`` (key and subscript paths over string
+columns).  The serving runtime over the row ops is
 ``spark_rapids_jni_tpu_torch.serve``; its grid and staging are
 ``spark_rapids_jni_tpu_torch.runtime``."""
 

@@ -1,4 +1,4 @@
-"""``get_json_object``: JSON path extraction over dense-padded string columns.
+"""``get_json_object``: JSON path extraction over string columns.
 
 The PyTorch counterpart of the non-wildcard route of
 ``spark_rapids_jni_tpu.ops.get_json`` (Spark's ``GetJsonObject``) for
@@ -31,10 +31,11 @@ of a string value (quotes stripped, escapes decoded); a missing path,
 invalid JSON or a traversal through a non-container gives null; null input
 rows give null.  Duplicate keys bind to the first.
 
-Wildcard (``[*]``) paths and Arrow-layout columns wait for a later slice
-of the port and raise ``NotImplementedError``; the JAX package's shape
-buckets, memo caches, obs spans and Pallas/XLA engine choice with its
-fallback are left out.
+An Arrow-layout column is scanned through its padded window, as in the JAX
+package: ``max_str_len`` or its longest length (one host read), rounded up
+to 4.  Wildcard (``[*]``) paths wait for a later slice of the port and raise
+``NotImplementedError``; the JAX package's shape buckets, memo caches, obs
+spans and Pallas/XLA engine choice with its fallback are left out.
 """
 
 from __future__ import annotations
@@ -603,20 +604,24 @@ def _host_fixup(chars, lens, strict, src: Column, segs, rows):
 # Entry point
 # ---------------------------------------------------------------------------
 
-def get_json_object(col: Column, path: str, *, device=None) -> Column:
+def get_json_object(col: Column, path: str, max_str_len=None, *,
+                    device=None) -> Column:
     """Spark ``get_json_object(json, path)`` for object-key and ``[i]``
-    array-subscript paths over a dense-padded STRING column, on ``device``
-    (default: the CUDA card).  Returns a dense-padded STRING column: chars
+    array-subscript paths over a STRING column, dense-padded or in Arrow
+    layout (scanned in a window of ``max_str_len`` or its longest length,
+    rounded up to 4), on ``device`` (default: the CUDA card).  Returns a
+    dense-padded STRING column, whatever the input's form, as the JAX
+    package does: chars
     ``[n, W']`` (``W'`` the input's width, or wider when a host-rendered
     container outgrows it; zeros past each length), int32 lengths and a
     packed validity mask; null where the path is missing, the JSON is
     malformed along the scan, or the input is null.
 
     One K9 launch scans the column; one host read of the punt flags gates
-    the host fixup of the rows that need it.  ``[*]`` paths and
-    Arrow-layout columns raise ``NotImplementedError`` (a later slice);
-    a non-string column, a bad path and a key longer than 254 bytes raise
-    ``ValueError``, as in the JAX package."""
+    the host fixup of the rows that need it.  ``[*]`` paths raise
+    ``NotImplementedError`` (a later slice); a non-string column, a bad
+    path, a key longer than 254 bytes and a document longer than its
+    window raise ``ValueError``, as in the JAX package."""
     if not col.dtype.is_string:
         raise ValueError("get_json_object needs a string column")
     segs = tuple(_parse_path(path))
@@ -624,13 +629,13 @@ def get_json_object(col: Column, path: str, *, device=None) -> Column:
         raise NotImplementedError(
             "wildcard ([*]) JSON paths wait for a later slice of the port "
             "(the get_json wildcard routes)")
-    if not col.is_padded:
-        raise NotImplementedError(
-            "get_json_object takes dense-padded string columns; "
-            "Arrow-layout strings wait for a later strings slice of the port")
     mkl = max((len(s) for s in segs if isinstance(s, bytes)), default=1)
     dev = resolve_device(device)
     col = col.to(dev)
+    if not col.is_padded:
+        if max_str_len is None:
+            max_str_len = int(col.str_lens().max()) if col.num_rows else 0
+        col = col._padded_view((int(max_str_len) + 3) // 4 * 4)
     ch = col.chars2d
     W = ch.shape[1]
     st = gjo_scan(ch, segs, mkl)

@@ -87,8 +87,9 @@ def hash_cols_eligible(cols) -> bool:
     """True when the hash kernels take these columns: at least one, each a
     fixed-width scalar of at most 8 bytes or a dense-padded string column
     (the JAX package's ``pallas_kernels.hash_cols_eligible``; the port has
-    no nested, Arrow-layout or width-capped columns, and its decimal128
-    columns are 16 bytes)."""
+    no nested or width-capped columns, and its decimal128 columns are 16
+    bytes).  An Arrow-layout column is not: ``hashing`` hands it over as
+    its padded window."""
     return bool(cols) and all(
         c.dtype.kind in _TYPE_CODES
         and (c.is_padded if c.dtype.is_string else c.dtype.itemsize <= 8)

@@ -14,8 +14,12 @@ The PyTorch counterpart of ``spark_rapids_jni_tpu.ops.hashing``:
 Each chains over the columns: a null field leaves the running hash
 unchanged, a fixed-width value hashes its Spark-normalised bytes (the
 kernels normalise by type code; the plain versions with
-``hash_kernels._as_u32_words`` / ``_col_u64_blocks``), and a dense-padded
-string column hashes its bytes seeded by the running hash.  The chain runs
+``hash_kernels._as_u32_words`` / ``_col_u64_blocks``), and a string column
+hashes its bytes seeded by the running hash.  An Arrow-layout string column
+reaches the kernels as its padded window (``Column.chars_window`` of its
+longest length rounded up to 4: zeros past each length do not change a
+hash), as the JAX package's ``_resolve_str_window`` reads the longest
+length once and hashes that window.  The chain runs
 as one CUDA kernel (:mod:`.hash_kernels`) on the card, and as the kernel's
 plain version when the caller passes ``device="cpu"``.  The JAX package's
 shape bucketing, obs spans and metrics, and its ``SRJ_TPU_PALLAS`` engine
@@ -41,7 +45,9 @@ def _columns_on(table_or_cols: Columns, device) -> tuple:
     """The columns on the entry point's device, checked: no decimal128
     column, and every padded string length within its width (one host
     read of the lengths' range, as the JAX package's
-    ``_resolve_str_window`` reads them)."""
+    ``_resolve_str_window`` reads them); Arrow-layout string columns as
+    padded windows of their longest length rounded up to 4 (one host read
+    of every Arrow column's length range)."""
     dev = resolve_device(device)
     cols = (table_or_cols.columns if isinstance(table_or_cols, Table)
             else tuple(table_or_cols))
@@ -52,16 +58,26 @@ def _columns_on(table_or_cols: Columns, device) -> tuple:
             "decimal128 columns are not hashed by the port yet: the JAX "
             "package hashes them on its XLA chain, which waits for "
             "ROADMAP.md queue 1, item 3")
-    cols = tuple(c.to(dev) for c in cols)
-    for c in cols:
-        if c.dtype.is_string and c.num_rows:
+    cols = [c.to(dev) for c in cols]
+    arrow = [i for i, c in enumerate(cols)
+             if c.dtype.is_string and not c.is_padded]
+    ranges = torch.stack([
+        torch.stack(torch.aminmax(cols[i].str_lens())) if cols[i].num_rows
+        else torch.zeros(2, dtype=torch.int32, device=dev)
+        for i in arrow]).tolist() if arrow else []
+    for i, (lo, hi) in zip(arrow, ranges):
+        if lo < 0:
+            raise ValueError("string offsets decrease: a negative length")
+        cols[i] = cols[i]._padded_view((hi + 3) // 4 * 4)
+    for i, c in enumerate(cols):
+        if c.dtype.is_string and c.num_rows and i not in arrow:
             lo, hi = (int(x) for x in torch.aminmax(c.lens))
             if lo < 0 or hi > c.chars2d.shape[1]:
                 raise ValueError(
                     f"string lengths in [{lo}, {hi}] do not fit the padded "
                     f"width {c.chars2d.shape[1]}; refusing to hash "
                     f"truncated bytes")
-    return cols
+    return tuple(cols)
 
 
 def murmur3_hash(table_or_cols: Columns, seed: int = DEFAULT_SEED, *,

@@ -27,6 +27,11 @@ row-conversion kernels' wrappers and plain PyTorch versions.
   wrappers and plain versions are in :mod:`.hash_kernels`.  So does the
   get_json path automaton (``csrc/gjo_scan.cu``), whose wrapper and plain
   version are in :mod:`.get_json`.
+- :func:`compact_encode` (``csrc/compact_encode.cu``) and
+  :func:`string_gather` (``csrc/string_gather.cu``) replace no TPU kernel:
+  the ragged copies of the compact JCUDF rows (the JAX package's XLA
+  ``_to_rows_variable_jit`` and ``_gather_one_string``), one warp a row,
+  every string column in one launch.
 
 A wrapper runs the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; there is no fallback.  Each launch
@@ -47,7 +52,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -62,7 +67,8 @@ from spark_rapids_jni_tpu_torch.ops.row_layout import RowLayout
 launches = {"grouped_encode": 0, "decode_planes": 0, "pack_planes": 0,
             "murmur3_cols": 0, "xxhash64_cols": 0, "bloom_might_contain": 0,
             "gjo_scan": 0, "planes_to_rows": 0, "rows_to_planes": 0,
-            "to_rows_cols": 0, "from_rows_cols": 0}
+            "to_rows_cols": 0, "from_rows_cols": 0, "compact_encode": 0,
+            "string_gather": 0}
 
 
 def reset_launches():
@@ -83,7 +89,9 @@ SOURCES = {"grouped_encode": "row_encode.cu", "decode_planes": "row_decode.cu",
            "planes_to_rows": "planes_to_rows.cu",
            "rows_to_planes": "rows_to_planes.cu",
            "to_rows_cols": "to_rows_cols.cu",
-           "from_rows_cols": "from_rows_cols.cu"}
+           "from_rows_cols": "from_rows_cols.cu",
+           "compact_encode": "compact_encode.cu",
+           "string_gather": "string_gather.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -138,6 +146,9 @@ _ENTRY = {
                                           _VP]),
     "from_rows_cols": ("srj_from_rows_cols", [_VP, _VP, _I64, _I32, _VP,
                                               _I64, _I32, _VP]),
+    "compact_encode": ("srj_compact_encode", [_VP, _VP, _I32, _I32, _VP,
+                                              _I64, _VP, _I32, _VP]),
+    "string_gather": ("srj_string_gather", [_VP, _VP, _VP, _I64, _I32, _VP]),
 }
 
 
@@ -840,3 +851,218 @@ def from_rows_cols(rows2d: torch.Tensor, layout: RowLayout,
                n, tile, vmask.data_ptr(), vmask.shape[1], dev.index,
                stream_of(dev))
     return datas, vmask
+
+
+# ---------------------------------------------------------------------------
+# The compact JCUDF rows' ragged copies (no TPU kernel): compact_encode and
+# string_gather
+# ---------------------------------------------------------------------------
+
+# the most string columns one launch takes (csrc/ragged_copy.cuh's
+# kMaxStrCols): a 1 KB fixed section holds at most 128 eight-byte pairs
+MAX_STR_COLS = 128
+
+
+class _CompactStr(ctypes.Structure):
+    """csrc/compact_encode.cu's SrjCompactStr."""
+    _fields_ = [("chars", ctypes.c_void_p), ("offsets", ctypes.c_void_p),
+                ("lo", ctypes.c_int64)]
+
+
+class _CompactCols(ctypes.Structure):
+    """csrc/compact_encode.cu's SrjCompactCols."""
+    _fields_ = [("col", _CompactStr * MAX_STR_COLS), ("ncols", ctypes.c_int32)]
+
+
+class _GatherStr(ctypes.Structure):
+    """csrc/string_gather.cu's SrjGatherStr."""
+    _fields_ = [("str_off", ctypes.c_void_p), ("str_len", ctypes.c_void_p),
+                ("out_off", ctypes.c_void_p), ("out", ctypes.c_void_p)]
+
+
+class _GatherCols(ctypes.Structure):
+    """csrc/string_gather.cu's SrjGatherCols."""
+    _fields_ = [("col", _GatherStr * MAX_STR_COLS), ("ncols", ctypes.c_int32)]
+
+
+def _is_vector(t: torch.Tensor, dtype, length: int, dev) -> bool:
+    return (t.dtype == dtype and t.dim() == 1 and t.shape[0] == length
+            and t.is_contiguous() and t.device == dev)
+
+
+def _check_compact_encode(fixed, fixed_end, row_offsets, total_bytes,
+                          strings):
+    _check(fixed.dtype == torch.uint8 and fixed.dim() == 2
+           and fixed.is_contiguous() and fixed.shape[1] % 4 == 0
+           and 0 < fixed_end <= fixed.shape[1],
+           f"fixed sections must be contiguous uint8 [n, stride] with the "
+           f"stride a multiple of 4 and at least fixed_end {fixed_end}, got "
+           f"{fixed.dtype} {tuple(fixed.shape)}")
+    n = fixed.shape[0]
+    dev = fixed.device
+    _check(_is_vector(row_offsets, torch.int32, n + 1, dev),
+           f"row offsets must be contiguous int32 [{n + 1}] on {dev}")
+    _check(total_bytes >= 0 and total_bytes % 8 == 0,
+           f"a batch of compact rows holds a multiple of 8 bytes, not "
+           f"{total_bytes}")
+    _check(len(strings) <= MAX_STR_COLS,
+           f"one launch takes at most {MAX_STR_COLS} string columns, got "
+           f"{len(strings)}")
+    for chars, offsets, lo in strings:
+        if not (chars.dtype == torch.uint8 and chars.dim() == 1
+                and chars.is_contiguous() and chars.device == dev
+                and _is_vector(offsets, torch.int32, n + 1, dev)
+                and lo >= 0):
+            raise ValueError(
+                f"each string column needs contiguous uint8 chars and int32 "
+                f"offsets [{n + 1}] on {dev} and lo >= 0, got "
+                f"{chars.dtype} {tuple(chars.shape)}, {offsets.dtype} "
+                f"{tuple(offsets.shape)}, lo {lo}")
+
+
+def compact_encode_plain(fixed: torch.Tensor, fixed_end: int,
+                         row_offsets: torch.Tensor, total_bytes: int,
+                         strings) -> torch.Tensor:
+    """Plain PyTorch version of :func:`compact_encode`, the JAX package's
+    ``_to_rows_variable_jit`` in torch: zeroed rows, the fixed sections'
+    words (``fixed_end`` rounded up to 4) scattered at ``row_offsets //
+    4``, then each string column's chars scattered byte by byte
+    (``repeat_interleave`` of the rows, an int64 index a char)."""
+    _check_compact_encode(fixed, fixed_end, row_offsets, total_bytes,
+                          strings)
+    n = fixed.shape[0]
+    dev = fixed.device
+    out = torch.zeros(total_bytes, dtype=torch.uint8, device=dev)
+    if n == 0:
+        return out
+    ro = row_offsets.to(torch.int64)
+    fw = (fixed_end + 3) // 4
+    idx = (ro[:-1] // 4)[:, None] + torch.arange(fw, device=dev)
+    out.view(torch.int32)[idx] = fixed.view(torch.int32)[:, :fw]
+    if not strings:
+        return out
+    lens = torch.stack([o[1:] - o[:-1] for _, o, _ in strings],
+                       1).to(torch.int64)                      # [n, k]
+    within = fixed_end + torch.cumsum(lens, 1) - lens
+    for k, (chars, offsets, lo) in enumerate(strings):
+        ln = lens[:, k]
+        total = int(ln.sum())
+        if not total:
+            continue
+        rows = torch.repeat_interleave(torch.arange(n, device=dev), ln,
+                                       output_size=total)
+        intra = torch.arange(total, device=dev) - \
+            (torch.cumsum(ln, 0) - ln)[rows]
+        dst = ro[rows] + within[rows, k] + intra
+        src = (offsets[:-1].to(torch.int64) - lo)[rows] + intra
+        out[dst] = chars[src]
+    return out
+
+
+def compact_encode(fixed: torch.Tensor, fixed_end: int,
+                   row_offsets: torch.Tensor, total_bytes: int,
+                   strings) -> torch.Tensor:
+    """The compact encode kernel: uint8 ``[total_bytes]`` compact JCUDF rows,
+    row ``r`` at ``row_offsets[r]`` (int32 ``[n + 1]``, from 0, multiples
+    of 8, ``row_offsets[n] == total_bytes``): its fixed section (``fixed``
+    uint8 ``[n, stride]``, the stride a multiple of 4, zeros from
+    ``fixed_end`` to it rounded up to 4), then each string
+    column's chars back to back from ``fixed_end``, then zeros to the row's
+    end.  ``strings`` holds one ``(chars, offsets, lo)`` a string column:
+    its chars from absolute offset ``lo`` on, and its absolute int32
+    offsets ``[n + 1]`` of the batch's rows; the caller guarantees every
+    row's chars inside ``chars`` and each row's size (the JCUDF row
+    sizes)."""
+    _check_compact_encode(fixed, fixed_end, row_offsets, total_bytes,
+                          strings)
+    dev = fixed.device
+    if dev.type == "cpu":
+        return compact_encode_plain(fixed, fixed_end, row_offsets,
+                                    total_bytes, strings)
+    _check(dev.type == "cuda", f"no kernel for device {dev}")
+    n, stride = fixed.shape
+    out = torch.empty(total_bytes, dtype=torch.uint8, device=dev)
+    if n:
+        cols = _CompactCols()
+        cols.ncols = len(strings)
+        for d, (chars, offsets, lo) in zip(cols.col, strings):
+            d.chars, d.offsets, d.lo = chars.data_ptr(), offsets.data_ptr(), lo
+        launch("compact_encode", ctypes.addressof(cols), fixed.data_ptr(),
+               stride, fixed_end, row_offsets.data_ptr(), n, out.data_ptr(),
+               dev.index, stream_of(dev))
+    return out
+
+
+def _check_gather(blob, row_offsets, pairs, totals):
+    _check(blob.dtype == torch.uint8 and blob.dim() == 1
+           and blob.is_contiguous(),
+           f"the blob must be contiguous flat uint8, got {blob.dtype} "
+           f"{tuple(blob.shape)}")
+    dev = blob.device
+    _check(row_offsets.dim() == 1 and row_offsets.shape[0] >= 1
+           and _is_vector(row_offsets, torch.int32, row_offsets.shape[0],
+                          dev),
+           f"row offsets must be contiguous int32 [n + 1] on {dev}")
+    n = row_offsets.shape[0] - 1
+    _check(len(pairs) == len(totals) <= MAX_STR_COLS,
+           f"{len(pairs)} string columns and {len(totals)} totals; one "
+           f"launch takes at most {MAX_STR_COLS}")
+    for (off, ln, out_off), total in zip(pairs, totals):
+        if not (_is_vector(off, torch.int32, n, dev)
+                and _is_vector(ln, torch.int32, n, dev)
+                and _is_vector(out_off, torch.int32, n + 1, dev)
+                and total >= 0):
+            raise ValueError(
+                f"each string column needs contiguous int32 offsets and "
+                f"lengths [{n}] and output offsets [{n + 1}] on {dev}, and "
+                f"a total >= 0")
+
+
+def string_gather_plain(blob: torch.Tensor, row_offsets: torch.Tensor,
+                        pairs, totals) -> List[torch.Tensor]:
+    """Plain PyTorch version of :func:`string_gather`, the JAX package's
+    ``_gather_one_string`` in torch: for each column, the rows repeated by
+    their lengths (``repeat_interleave``), an int64 source index a char, one
+    byte gather."""
+    _check_gather(blob, row_offsets, pairs, totals)
+    dev = blob.device
+    n = row_offsets.shape[0] - 1
+    ro = row_offsets.to(torch.int64)
+    out = []
+    for (off, ln, out_off), total in zip(pairs, totals):
+        if not total:
+            out.append(torch.empty(0, dtype=torch.uint8, device=dev))
+            continue
+        rows = torch.repeat_interleave(torch.arange(n, device=dev),
+                                       ln.to(torch.int64), output_size=total)
+        intra = torch.arange(total, device=dev) - \
+            out_off[:-1].to(torch.int64)[rows]
+        out.append(blob[ro[rows] + off.to(torch.int64)[rows] + intra])
+    return out
+
+
+def string_gather(blob: torch.Tensor, row_offsets: torch.Tensor, pairs,
+                  totals) -> List[torch.Tensor]:
+    """The string gather kernel: for each string column, uint8 ``[total]``
+    chars, row ``r``'s ``str_len[r]`` bytes from ``blob[row_offsets[r] +
+    str_off[r]:]`` at ``out_off[r]``.  ``pairs`` holds one ``(str_off,
+    str_len, out_off)`` a column (int32 ``[n]``, ``[n]``, ``[n + 1]``, the
+    output offsets the lengths' exclusive sum), ``totals`` each column's
+    ``out_off[n]``.  The caller guarantees every pair inside its row and the
+    blob (``row_conversion`` checks them before it calls)."""
+    _check_gather(blob, row_offsets, pairs, totals)
+    dev = blob.device
+    if dev.type == "cpu":
+        return string_gather_plain(blob, row_offsets, pairs, totals)
+    _check(dev.type == "cuda", f"no kernel for device {dev}")
+    out = [torch.empty(t, dtype=torch.uint8, device=dev) for t in totals]
+    n = row_offsets.shape[0] - 1
+    if n and pairs:
+        cols = _GatherCols()
+        cols.ncols = len(pairs)
+        for d, (off, ln, out_off), chars in zip(cols.col, pairs, out):
+            d.str_off, d.str_len = off.data_ptr(), ln.data_ptr()
+            d.out_off, d.out = out_off.data_ptr(), chars.data_ptr()
+        launch("string_gather", ctypes.addressof(cols), blob.data_ptr(),
+               row_offsets.data_ptr(), n, dev.index, stream_of(dev))
+    return out

@@ -1,5 +1,5 @@
-"""Table <-> JCUDF row-blob conversion: fixed-width tables and dense-padded
-string tables.
+"""Table <-> JCUDF row-blob conversion: fixed-width tables, and string tables
+as dense-padded or compact rows.
 
 The PyTorch counterpart of ``spark_rapids_jni_tpu.ops.row_conversion``
 (reference ``src/main/cpp/src/row_conversion.cu``; public API
@@ -43,8 +43,24 @@ The PyTorch counterpart of ``spark_rapids_jni_tpu.ops.row_conversion``
   copies; the decode runs the decode kernel over the rows' fixed section
   (the row stride is the padded row size) and slices the char slots.
   :func:`compact_rows_host` turns a padded batch into the compact JCUDF
-  wire bytes on the host.  Compact string blobs, Arrow-layout string
-  columns and width-capped columns wait for a later slice of the port.
+  wire bytes on the host.
+- Compact rows, the JCUDF wire form (the JAX package's
+  ``_to_rows_variable`` and ``_from_rows_variable``): a table with any
+  Arrow-layout string column (a mixed table's padded string columns go to
+  Arrow first; an all-padded table keeps the padded encode).  Each row is
+  its fixed section, the string slots' pairs holding each string's offset
+  in the row and its length, then its strings' chars back to back from
+  ``fixed_end``, rounded up to 8 bytes.  One host read fetches the row
+  sizes and every string column's offsets; the batches are
+  :func:`plan_variable_batches`'; each batch is one compact encode kernel
+  launch (``kernels.compact_encode``) over its fixed sections, assembled
+  with torch copies.  The decode gathers each row's fixed section as
+  words, runs the decode kernel over them (row stride ``fe_pad``), checks
+  every pair against its row in the one host read of the char totals, and
+  copies every string column's chars in one string gather kernel launch
+  (``kernels.string_gather``); the decoded columns are Arrow, offsets from
+  0.  Width-capped columns are not ported (``ROADMAP.md`` queue 1, item
+  4).
 
 ``convert_{to,from}_rows_fixed_width_optimized`` are the independent byte
 gather oracle (the reference's legacy path), in plain PyTorch.
@@ -63,8 +79,9 @@ from spark_rapids_jni_tpu_torch.table import (
     pack_bools, resolve_device,
 )
 from spark_rapids_jni_tpu_torch.ops import kernels, plane_rows, row_mxu
+from spark_rapids_jni_tpu_torch.runtime import staging
 from spark_rapids_jni_tpu_torch.ops.row_layout import (
-    MAX_BATCH_BYTES, RowLayout, compute_row_layout,
+    JCUDF_ROW_ALIGNMENT, MAX_BATCH_BYTES, RowLayout, compute_row_layout,
 )
 
 
@@ -84,7 +101,8 @@ class RowsColumn:
     every row takes ``row_size`` bytes, string column ``si`` a fixed
     ``str_widths[si]``-byte char slot that its (offset, length) pair
     addresses, so the blob is self-describing JCUDF with the compact wire
-    form's content plus slack in each row."""
+    form's content plus slack in each row.  A compact batch (a string
+    table's wire form) has neither, and its ``data`` is flat."""
 
     data: torch.Tensor
     offsets: torch.Tensor
@@ -249,7 +267,8 @@ def convert_to_rows(table: Table, *, size_limit: int = MAX_BATCH_BYTES,
                     device=None) -> List[RowsColumn]:
     """Convert a table to JCUDF row batches (reference ``convert_to_rows``,
     ``row_conversion.cu:1902-1960``) on ``device`` (default: the CUDA
-    card).  A table with string columns takes the dense-padded encode; a
+    card).  A table with string columns takes the dense-padded encode when
+    every string column is padded, else the compact encode; a
     fixed-width one one pack and one encode kernel per batch, or above
     :data:`_FUSED_PREP_CAP` the two-stage encode batch by batch, or with
     ``impl="pallas"`` the word-plane engine, or with ``impl="xla"`` the
@@ -258,7 +277,9 @@ def convert_to_rows(table: Table, *, size_limit: int = MAX_BATCH_BYTES,
     layout = compute_row_layout(table.dtypes)
     table = table.to(dev)
     if layout.has_strings:
-        return _to_rows_variable_padded(table, layout, size_limit)
+        if all(c.is_padded for c in _string_cols(table)):
+            return _to_rows_variable_padded(table, layout, size_limit)
+        return _to_rows_variable(table, layout, size_limit)
     impl = _resolve_impl(impl, use_pallas)
     if impl == "pallas":
         return _to_rows_batched(table, layout, size_limit,
@@ -326,19 +347,17 @@ def convert_from_rows(rows: RowsColumn, dtypes: Sequence[DType], *,
     """Convert one batch of JCUDF rows back to a table (reference
     ``convert_from_rows``, ``row_conversion.cu:2032-2250``): one decode
     kernel, then one column per field; a dense-padded string batch's char
-    slots are sliced out after it.  ``impl="pallas"`` (or
+    slots are sliced out after it, a compact batch's chars gathered by the
+    string gather kernel into Arrow columns.  ``impl="pallas"`` (or
     ``use_pallas=True``) decodes a fixed-width batch through the word-plane
     engine, ``impl="xla"`` (or ``use_pallas=False``) through the generic
     engine."""
     dev = resolve_device(device)
     layout = compute_row_layout(dtypes)
     if layout.has_strings:
-        if not rows.is_padded:
-            raise NotImplementedError(
-                "compact JCUDF string blobs (the Arrow-layout decode) wait "
-                "for a later slice of the PyTorch port; this one decodes "
-                "dense-padded batches")
-        return _from_rows_variable_padded(rows, layout, dev)
+        if rows.is_padded:
+            return _from_rows_variable_padded(rows, layout, dev)
+        return _from_rows_variable(rows, layout, dev)
     rows2d = _rows2d_on(rows, layout.fixed_row_size, dev)
     decode = {"mxu": row_mxu.from_rows_fixed,
               "pallas": plane_rows.from_rows_fixed,
@@ -396,12 +415,15 @@ def padded_variable_layout(layout: RowLayout, widths: Sequence[int]):
 
 
 def _assemble_fixed_variable(out: torch.Tensor, table: Table,
-                             layout: RowLayout, slot_starts: Sequence[int],
+                             layout: RowLayout, pair_offsets,
                              start: int, size: int):
     """Write rows ``[start, start + size)``'s fixed sections into ``out``
     (uint8 ``[size, >= fixed_end]``, zeros where nothing is written): each
-    fixed-width column's bytes, each string column's uint32 pair (its char
-    slot's start, the row's length) and the validity bytes."""
+    fixed-width column's bytes, each string column's uint32 pair (the
+    string's offset in the row, its length) and the validity bytes.
+    ``pair_offsets[si]`` is string column ``si``'s offset: its char slot's
+    start in a padded row, or int32 ``[size]``, one a row, in a compact
+    one."""
     si = 0
     for i, col in enumerate(table.columns):
         s, sz = layout.col_starts[i], layout.col_sizes[i]
@@ -409,7 +431,7 @@ def _assemble_fixed_variable(out: torch.Tensor, table: Table,
         # a multiple of 8, so each field is one element of a typed view
         if col.dtype.is_string:
             pair = out[:, s:s + 8].view(torch.int32)
-            pair[:, 0] = slot_starts[si]
+            pair[:, 0] = pair_offsets[si]
             pair[:, 1] = col.str_lens()[start:start + size]
             si += 1
         elif sz == 16:      # decimal128 [n, 4] limbs
@@ -450,13 +472,7 @@ def padded_rows2d(table: Table, layout: RowLayout,
 
 def _to_rows_variable_padded(table: Table, layout: RowLayout,
                              size_limit: int) -> List[RowsColumn]:
-    scols = _string_cols(table)
-    for c in scols:
-        if not c.is_padded:
-            raise NotImplementedError(
-                "Arrow-layout string columns wait for a later slice of the "
-                "PyTorch port; this one encodes dense-padded strings")
-    widths = tuple(c.chars2d.shape[1] for c in scols)
+    widths = tuple(c.chars2d.shape[1] for c in _string_cols(table))
     slot_starts, _, row_size = padded_variable_layout(layout, widths)
     # padded rows are uniform: the only bound on a batch is the int32
     # offsets' 2^31 - 1 bytes
@@ -521,6 +537,187 @@ def _from_rows_variable_padded(rows: RowsColumn, layout: RowLayout,
         if dt.is_string:
             chars2d, lens = next(parts)
             cols.append(Column.padded_strings(chars2d, lens, masks[i]))
+        else:
+            cols.append(Column(dt, datas[i], masks[i]))
+    return Table(tuple(cols))
+
+
+# ---------------------------------------------------------------------------
+# Compact rows: tables with Arrow-layout strings
+# ---------------------------------------------------------------------------
+
+def _row_sizes(table: Table, layout: RowLayout) -> torch.Tensor:
+    """int64 ``[n]``: each compact row's size, ``fixed_end`` plus its
+    strings' lengths, rounded up to 8 (the JAX package's
+    ``_row_sizes_jit``)."""
+    total = sum(c.str_lens().to(torch.int64) for c in _string_cols(table))
+    a = JCUDF_ROW_ALIGNMENT
+    return (layout.fixed_end + total + a - 1) // a * a
+
+
+def _compact_plan(table: Table, layout: RowLayout):
+    """(row sizes int64 ``[n]``, each string column's offsets int32 ``[n +
+    1]``) as numpy, in one read (``staging.fetch_arrays``, as the JAX
+    package fetches the two).  The read carries one more flag: whether any
+    column's offsets decrease or leave its chars, which raises
+    ``ValueError`` (the encode kernel reads the chars the offsets name)."""
+    scols = _string_cols(table)
+    sizes = _row_sizes(table, layout)
+    bad = torch.zeros((), dtype=torch.bool, device=table.device)
+    for c in scols:
+        o = c.offsets
+        bad = bad | (o[0] < 0) | (o[-1] > c.chars.shape[0]) \
+            | (o[1:] < o[:-1]).any()
+    fetched = staging.fetch_arrays(
+        [sizes] + [c.offsets for c in scols] + [bad.view(1)])
+    if fetched[-1][0]:
+        raise ValueError("string offsets must be nondecreasing and inside "
+                         "their chars")
+    return fetched[0], fetched[1:-1]
+
+
+def _compact_batch_inputs(table: Table, layout: RowLayout, start: int,
+                          end: int, row_sizes: np.ndarray,
+                          col_offsets: np.ndarray):
+    """The compact encode kernel's arguments for table rows ``[start,
+    end)`` (``kernels.compact_encode``): the fixed sections ``[size,
+    fixed_end`` rounded up to 8``]`` (each string's pair holding
+    ``fixed_end`` plus the lengths of the row's strings before it; typed
+    views of a field need the 8-byte stride), ``fixed_end``, the batch's
+    row offsets from 0, its bytes, and each string column's chars sliced
+    at the batch's first char, as the JAX package's
+    ``_slice_chars_batch_jit`` slices them, with its offsets of the
+    batch's rows and that first char ``lo``."""
+    dev = table.device
+    size = end - start
+    offsets = np.zeros(size + 1, np.int64)
+    np.cumsum(row_sizes[start:end], out=offsets[1:])
+    row_offsets = torch.from_numpy(offsets.astype(np.int32)).to(dev)
+    scols = _string_cols(table)
+    # each string's offset in its row: fixed_end plus the lengths of the
+    # row's strings before it, a running sum over the columns
+    within, acc = [], torch.full((size,), layout.fixed_end,
+                                 dtype=torch.int32, device=dev)
+    for c in scols:
+        within.append(acc)
+        acc = acc + c.str_lens()[start:end]
+    a = JCUDF_ROW_ALIGNMENT
+    fixed = torch.zeros((size, (layout.fixed_end + a - 1) // a * a),
+                        dtype=torch.uint8, device=dev)
+    _assemble_fixed_variable(fixed, table, layout, within, start, size)
+    strings = []
+    for c, offs in zip(scols, col_offsets):
+        lo, hi = int(offs[start]), int(offs[end])
+        strings.append((c.chars[lo:hi], c.offsets[start:end + 1], lo))
+    return fixed, layout.fixed_end, row_offsets, int(offsets[-1]), strings
+
+
+def _to_rows_variable(table: Table, layout: RowLayout,
+                      size_limit: int) -> List[RowsColumn]:
+    """Compact rows of a table with an Arrow-layout string column (the JAX
+    package's ``_to_rows_variable``): its padded string columns go to
+    Arrow, one host read plans the batches (of at most 2^31 - 1 bytes, the
+    int32 offsets' reach), and each batch is one compact encode kernel
+    launch."""
+    table = Table(tuple(c.to_arrow() for c in table.columns))
+    row_sizes, col_offsets = _compact_plan(table, layout)
+    out = []
+    for start, end in plan_variable_batches(
+            row_sizes, min(size_limit, MAX_BATCH_BYTES)):
+        args = _compact_batch_inputs(table, layout, start, end, row_sizes,
+                                     col_offsets)
+        out.append(RowsColumn(kernels.compact_encode(*args), args[2]))
+    return out
+
+
+def _compact_fixed_sections(blob: torch.Tensor, row_offsets: torch.Tensor,
+                            layout: RowLayout) -> torch.Tensor:
+    """uint8 ``[n, fe_pad]``: each compact row's fixed section, gathered as
+    words at ``row_offsets // 4`` (the JAX package's
+    ``_extract_fixed_variable_jit``), one index a row into the blob's
+    sliding word windows.  A start past the blob is clamped, as the JAX
+    gather clips: the rows are checked after the decode
+    (:func:`_gather_plan`), before anything else reads the blob."""
+    n = row_offsets.shape[0] - 1
+    fw = (layout.fixed_end + 3) // 4
+    if n == 0 or blob.shape[0] < 4 * fw:
+        return torch.zeros((n, 4 * fw), dtype=torch.uint8,
+                           device=blob.device)
+    words = blob.view(torch.int32)
+    starts = (row_offsets[:-1].to(torch.int64) // 4).clamp(
+        0, words.shape[0] - fw)
+    return words.unfold(0, fw, 1)[starts].view(torch.uint8)
+
+
+def _gather_plan(blob: torch.Tensor, row_offsets: torch.Tensor,
+                 layout: RowLayout, str_offs, str_lens):
+    """(each string column's output offsets int32 ``[n + 1]``, from 0, and
+    its char total) in one host read (the JAX package's
+    ``_str_totals_jit``), which carries one reduction over the rows and
+    pairs: row offsets multiples of 8 from 0 or more, each row at least
+    ``fixed_end`` bytes, the last inside the blob, each pair inside its
+    row.  A blob that fails raises ``ValueError`` before the string gather
+    reads it: the JAX package clips such reads instead, and on the card an
+    address outside the blob would fault."""
+    ro = row_offsets.to(torch.int64)
+    sizes = ro[1:] - ro[:-1]
+    offs = torch.stack(str_offs).to(torch.int64)           # [k, n]
+    lens = torch.stack(str_lens).to(torch.int64)
+    bad = ((ro[0] < 0) | (ro[-1] > blob.shape[0]) | (ro % 8 != 0).any()
+           | (sizes < layout.fixed_end).any() | (offs < 0).any()
+           | (lens < 0).any() | (offs + lens > sizes).any())
+    got = torch.cat([lens.sum(1), bad.view(1).to(torch.int64)]).tolist()
+    if got[-1]:
+        raise ValueError(
+            "malformed compact rows: row offsets must be multiples of 8 "
+            "inside the blob, each row at least fixed_end bytes, and every "
+            "string's (offset, length) pair inside its row")
+    zero = torch.zeros(1, dtype=torch.int32, device=blob.device)
+    out_offs = [torch.cat([zero, torch.cumsum(ln, 0, dtype=torch.int32)])
+                for ln in str_lens]
+    return out_offs, got[:-1]
+
+
+def _compact_decode(blob: torch.Tensor, row_offsets: torch.Tensor,
+                    layout: RowLayout):
+    """The fixed-width columns of compact rows ``blob`` (flat, 4-byte
+    aligned) and the string gather kernel's arguments for its string
+    columns: the fixed sections gathered as words, one decode kernel
+    launch over them (row stride ``fe_pad``), each string slot's offset
+    and length planes, checked against their rows in the char totals'
+    host read.  Returns (datas, masks, gather arguments)."""
+    fixed = _compact_fixed_sections(blob, row_offsets, layout)
+    planes, vmask = kernels.decode_planes(fixed, layout)
+    datas, masks, str_lens = _cols_from_planes(planes, vmask, layout)
+    plan = row_mxu._inverse_plan(layout)[0]
+    str_offs = [planes[plan.col_word[i]]                    # the lo plane
+                for i, dt in enumerate(layout.dtypes) if dt.is_string]
+    out_offs, totals = _gather_plan(blob, row_offsets, layout, str_offs,
+                                    str_lens)
+    pairs = list(zip(str_offs, str_lens, out_offs))
+    return datas, masks, (blob, row_offsets, pairs, totals)
+
+
+def _from_rows_variable(rows: RowsColumn, layout: RowLayout,
+                        dev) -> Table:
+    """Arrow columns of a compact batch (the JAX package's
+    ``_from_rows_variable``): :func:`_compact_decode`, then one string
+    gather kernel launch for every string column."""
+    blob = rows.data.reshape(-1).to(dev)
+    if blob.shape[0] % 4:
+        raise ValueError(f"a compact blob holds whole 8-byte rows, not "
+                         f"{blob.shape[0]} bytes")
+    if blob.data_ptr() % 4:
+        blob = blob.clone()
+    datas, masks, gather = _compact_decode(blob, rows.offsets.to(dev),
+                                           layout)
+    chars = iter(kernels.string_gather(*gather))
+    out_offs = iter(out_off for _, _, out_off in gather[2])
+    cols = []
+    for i, dt in enumerate(layout.dtypes):
+        if dt.is_string:
+            cols.append(Column.arrow_strings(next(out_offs), next(chars),
+                                             masks[i]))
         else:
             cols.append(Column(dt, datas[i], masks[i]))
     return Table(tuple(cols))

@@ -1,7 +1,7 @@
 """Columnar containers for tables, as PyTorch tensors.
 
-The PyTorch counterpart of ``spark_rapids_jni_tpu.table`` (fixed-width and
-dense-padded string columns):
+The PyTorch counterpart of ``spark_rapids_jni_tpu.table`` (fixed-width,
+dense-padded string and Arrow-layout string columns):
 
 - A :class:`Column` holds ``data``, a 1-D tensor of the column's own torch
   dtype (64-bit columns are native ``int64``/``float64``/``uint64``
@@ -9,11 +9,16 @@ dense-padded string columns):
   column's ``data`` is int32 ``[n, 4]``: four 32-bit limbs a value,
   little-endian, in two's complement, the JAX package's uint32 limbs bit
   for bit.
-- A string column is dense-padded: ``chars2d`` uint8 ``[n, W]`` (``W`` a
-  multiple of 4, zeros past each length) and int32 ``lens [n]``; its
-  ``data`` is an empty placeholder, as in the JAX package.  Arrow-layout
-  strings (offsets + flat chars) and width-capped columns with their host
-  tail wait for a later slice of the port.
+- A string column's ``data`` is an empty placeholder, as in the JAX package,
+  and its strings take one of two forms.  Dense-padded: ``chars2d`` uint8
+  ``[n, W]`` (``W`` a multiple of 4, zeros past each length) and int32
+  ``lens [n]``.  Arrow layout (the JAX package's default,
+  :meth:`Column.strings`): int32 ``offsets [n + 1]`` and flat uint8
+  ``chars``, row ``r`` being ``chars[offsets[r]:offsets[r + 1]]``.  A
+  sliced Arrow column keeps absolute offsets and shares its parent's
+  chars, so every consumer reads from ``offsets[0]`` on.  Width-capped
+  padded columns with their host tail are not ported (``ROADMAP.md``
+  queue 1, item 4).
 - Validity is a ``uint8 [ceil(n/8)]`` LSB-first bitmask over rows: byte
   ``r // 8``, bit ``r % 8``; ``1`` means valid.  It is byte-identical to the
   JAX package's mask and to the bit order the JCUDF row format uses.
@@ -270,16 +275,20 @@ class Column:
     """One column and an optional packed ``validity`` ``uint8 [ceil(n/8)]``
     (None: all valid).  Fixed width: ``data`` ``[n]`` of
     ``dtype.torch_dtype`` (int32 ``[n, 4]`` limbs for decimal128).
-    String: ``chars2d`` uint8 ``[n, W]`` (``W % 4 == 0``, zeros past each
-    length) and int32 ``lens [n]``, with ``data`` an empty placeholder.
-    Columns are not modified in place after construction; views of a
-    decoded backing share its storage."""
+    String, with ``data`` an empty placeholder: dense-padded, ``chars2d``
+    uint8 ``[n, W]`` (``W % 4 == 0``, zeros past each length) and int32
+    ``lens [n]``; or Arrow layout, int32 ``offsets [n + 1]`` (absolute
+    into ``chars``, nondecreasing) and flat uint8 ``chars``.  Columns are
+    not modified in place after construction; views of a decoded backing
+    share its storage."""
 
     dtype: DType
     data: torch.Tensor
     validity: Optional[torch.Tensor] = None
     chars2d: Optional[torch.Tensor] = None
     lens: Optional[torch.Tensor] = None
+    offsets: Optional[torch.Tensor] = None
+    chars: Optional[torch.Tensor] = None
 
     @staticmethod
     def from_numpy(values: np.ndarray, dtype: DType,
@@ -359,10 +368,54 @@ class Column:
                                      torch.from_numpy(lens).to(dev),
                                      validity)
 
+    @staticmethod
+    def arrow_strings(offsets: torch.Tensor, chars: torch.Tensor,
+                      validity: Optional[torch.Tensor] = None) -> "Column":
+        """An Arrow-layout string column from tensors on one device: int32
+        ``offsets [n + 1]`` into uint8 ``chars`` and packed ``validity`` or
+        None.  Shapes and types are checked here; the offsets are checked
+        by the consumers that read the chars."""
+        if (offsets.dtype != torch.int32 or offsets.dim() != 1
+                or offsets.shape[0] < 1 or chars.dtype != torch.uint8
+                or chars.dim() != 1):
+            raise ValueError(
+                f"Arrow strings need int32 offsets [n + 1] and flat uint8 "
+                f"chars, got {offsets.dtype} {tuple(offsets.shape)} and "
+                f"{chars.dtype} {tuple(chars.shape)}")
+        n = offsets.shape[0] - 1
+        if validity is not None and tuple(validity.shape) != ((n + 7) // 8,):
+            raise ValueError(f"validity holds {tuple(validity.shape)} bytes "
+                             f"for {n} rows")
+        return Column(STRING, torch.empty(0, dtype=torch.uint8,
+                                          device=chars.device),
+                      validity, offsets=offsets, chars=chars)
+
+    @staticmethod
+    def strings(values: Sequence[Optional[str]], device=None) -> "Column":
+        """An Arrow-layout string column from Python strings (None: null),
+        UTF-8 encoded: the JAX package's ``Column.strings``."""
+        dev = resolve_device(device)
+        vals = ["" if s is None else s for s in values]
+        enc = [s.encode("utf-8") for s in vals]
+        chars = np.frombuffer(b"".join(enc), dtype=np.uint8)
+        offsets = np.zeros(len(enc) + 1, dtype=np.int32)
+        np.cumsum(np.fromiter(map(len, enc), dtype=np.int64,
+                              count=len(enc)), out=offsets[1:])
+        validity = None
+        if any(s is None for s in values):
+            validity = torch.from_numpy(np.packbits(
+                np.array([s is not None for s in values], bool),
+                bitorder="little")).to(dev)
+        return Column.arrow_strings(torch.from_numpy(offsets).to(dev),
+                                    torch.from_numpy(chars.copy()).to(dev),
+                                    validity)
+
     @property
     def num_rows(self) -> int:
         if self.dtype.is_string:
-            return self.lens.shape[0]
+            if self.is_padded:
+                return self.lens.shape[0]
+            return self.offsets.shape[0] - 1
         return self.data.shape[0]
 
     @property
@@ -382,15 +435,82 @@ class Column:
 
     def str_lens(self) -> torch.Tensor:
         """Per-row string byte lengths, int32 ``[n]``."""
-        return self.lens
+        if self.is_padded:
+            return self.lens
+        return self.offsets[1:] - self.offsets[:-1]
 
     def chars_window(self, W: int) -> torch.Tensor:
         """Padded byte window uint8 ``[n, W]`` (zero past the lengths): a
-        slice of ``chars2d`` or a zero-padded copy."""
-        have = self.chars2d.shape[1]
-        if have >= W:
-            return self.chars2d[:, :W]
-        return torch.nn.functional.pad(self.chars2d, (0, W - have))
+        slice of ``chars2d`` or a zero-padded copy; for an Arrow column, a
+        gather of each row's ``W`` bytes from its offset (one index a row,
+        into the chars' sliding windows), zeroed past its length."""
+        if self.is_padded:
+            have = self.chars2d.shape[1]
+            if have >= W:
+                return self.chars2d[:, :W]
+            return torch.nn.functional.pad(self.chars2d, (0, W - have))
+        dev = self.chars.device
+        if W == 0:
+            return torch.zeros((self.num_rows, 0), dtype=torch.uint8,
+                               device=dev)
+        padded = torch.cat([self.chars, torch.zeros(W, dtype=torch.uint8,
+                                                    device=dev)])
+        starts = self.offsets[:-1].to(torch.int64).clamp(
+            0, self.chars.shape[0])
+        win = padded.unfold(0, W, 1)[starts]
+        win.masked_fill_(torch.arange(W, device=dev)
+                         >= self.str_lens()[:, None], 0)
+        return win
+
+    def _padded_view(self, W: int) -> "Column":
+        """The column as dense-padded strings of width ``W`` (a multiple of
+        4; not checked against the lengths)."""
+        return Column.padded_strings(self.chars_window(W),
+                                     self.str_lens().contiguous(),
+                                     self.validity)
+
+    def to_padded(self, pad_to: Optional[int] = None,
+                  width_cap=None) -> "Column":
+        """Arrow -> dense-padded, as torch ops on the column's device (the
+        JAX package's ``to_padded`` runs on the host; the result is the
+        same): ``W`` is ``pad_to`` or the longest string, rounded up to a
+        multiple of 4.  A padded or fixed-width column comes back as it is.
+        ``width_cap`` raises ``NotImplementedError``: width-capped columns
+        and their host tails are not ported (``ROADMAP.md`` queue 1, item
+        4)."""
+        if width_cap is not None:
+            raise NotImplementedError(
+                "width-capped string columns (width_cap=) are not ported "
+                "yet: ROADMAP.md queue 1, item 4")
+        if not self.dtype.is_string or self.is_padded:
+            return self
+        longest = int(self.str_lens().max()) if self.num_rows else 0
+        return self._padded_view(_padded_width(longest, pad_to))
+
+    def to_arrow(self) -> "Column":
+        """Dense-padded -> Arrow, as torch ops on the column's device: the
+        offsets are the lengths' running sum from 0 and the chars each
+        row's bytes up to its length.  Lengths outside ``[0, W]`` raise
+        ``ValueError`` (a width-capped column's bytes past ``W`` would live
+        in a host tail, which the port does not have: ``ROADMAP.md`` queue
+        1, item 4)."""
+        if not self.dtype.is_string or not self.is_padded:
+            return self
+        W = self.chars2d.shape[1]
+        lens = self.lens
+        if self.num_rows:
+            lo, hi = (int(x) for x in torch.aminmax(lens))
+            if lo < 0 or hi > W:
+                raise ValueError(
+                    f"string lengths in [{lo}, {hi}] do not fit the padded "
+                    f"width {W}; refusing to emit truncated strings")
+        offsets = torch.zeros(self.num_rows + 1, dtype=torch.int32,
+                              device=lens.device)
+        torch.cumsum(lens, 0, out=offsets[1:])
+        keep = torch.arange(W, device=lens.device) < lens[:, None]
+        return Column.arrow_strings(offsets,
+                                    torch.masked_select(self.chars2d, keep),
+                                    self.validity)
 
     def to_numpy(self) -> np.ndarray:
         """Host values in the dtype's numpy type, bit for bit (fixed-width
@@ -398,14 +518,15 @@ class Column:
         ``lens``)."""
         if self.dtype.is_string:
             raise ValueError("a string column has no values array; use "
-                             "chars2d and lens")
+                             "chars2d and lens, or offsets and chars")
         return bits_view(self.data).cpu().numpy().view(self.dtype.np_dtype)
 
     def to(self, device) -> "Column":
         def move(t):
             return None if t is None else t.to(device)
         return Column(self.dtype, self.data.to(device), move(self.validity),
-                      move(self.chars2d), move(self.lens))
+                      move(self.chars2d), move(self.lens),
+                      move(self.offsets), move(self.chars))
 
 
 _BITS_NP = {1: np.uint8, 2: np.int16, 4: np.int32, 8: np.int64}
@@ -456,8 +577,21 @@ class Table:
                            for a, dt, v in zip(arrays, dtypes, valids)))
 
 
+def _slice_strings(c: Column, validity, start: int, end: int) -> Column:
+    """Rows ``[start, end)`` of a string column: views of a padded
+    column's rows, or of an Arrow column's offsets (absolute, sharing the
+    parent's chars, as in the JAX package)."""
+    if c.is_padded:
+        return Column(c.dtype, c.data, validity, c.chars2d[start:end],
+                      c.lens[start:end])
+    return Column(c.dtype, c.data, validity, offsets=c.offsets[start:end + 1],
+                  chars=c.chars)
+
+
 def slice_table(table: Table, start: int, end: int) -> Table:
-    """Row-slice a table; validity masks are re-packed from ``start``."""
+    """Row-slice a table; validity masks are re-packed from ``start``.
+    Arrow string columns keep absolute offsets into their parent's
+    chars."""
     cols = []
     for c in table.columns:
         validity = None
@@ -465,8 +599,7 @@ def slice_table(table: Table, start: int, end: int) -> Table:
             validity = pack_bools(
                 unpack_bools(c.validity, c.num_rows)[start:end])
         if c.dtype.is_string:
-            cols.append(Column(c.dtype, c.data, validity,
-                               c.chars2d[start:end], c.lens[start:end]))
+            cols.append(_slice_strings(c, validity, start, end))
         else:
             cols.append(Column(c.dtype, c.data[start:end], validity))
     return Table(tuple(cols))
@@ -490,8 +623,7 @@ def slice_table_dynamic(table: Table, start: int, size: int) -> Table:
         validity = None if c.validity is None else \
             c.validity[start // 8:start // 8 + (size + 7) // 8]
         if c.dtype.is_string:
-            cols.append(Column(c.dtype, c.data, validity,
-                               c.chars2d[start:end], c.lens[start:end]))
+            cols.append(_slice_strings(c, validity, start, end))
         else:
             cols.append(Column(c.dtype, c.data[start:end], validity))
     return Table(tuple(cols))
@@ -501,15 +633,25 @@ def _string_bytes(c: Column, W: int) -> torch.Tensor:
     """A string column's chars in a ``[n, W]`` window, zeroed past each
     length, and its lengths as the last entry of each row."""
     ch = c.chars_window(W)
-    ch = torch.where(torch.arange(W, device=ch.device) < c.lens[:, None],
+    lens = c.str_lens()
+    ch = torch.where(torch.arange(W, device=ch.device) < lens[:, None],
                      ch, torch.zeros((), dtype=torch.uint8, device=ch.device))
-    return torch.cat([ch.to(torch.int32), c.lens[:, None]], dim=1)
+    return torch.cat([ch.to(torch.int32), lens[:, None]], dim=1)
+
+
+def _string_width(c: Column) -> int:
+    """The window that holds every string of ``c``: a padded column's
+    width, an Arrow column's longest length."""
+    if c.is_padded:
+        return c.chars2d.shape[1]
+    return int(c.str_lens().max()) if c.num_rows else 0
 
 
 def assert_tables_equivalent(a: Table, b: Table, *, check_nulls: bool = True):
     """Test oracle: equal types and validity, and data equal by bits (so
     NaN payloads and signed zeros count); strings equal in length and in
-    their bytes up to it, whatever the padded widths.  With
+    their bytes up to it, whatever the padded widths or string forms (a
+    padded and an Arrow column of the same strings are equal).  With
     ``check_nulls`` (the default) data under null rows is ignored, the
     semantics of ``CUDF_TEST_EXPECT_TABLES_EQUIVALENT``; without it every
     row must match."""
@@ -525,7 +667,7 @@ def assert_tables_equivalent(a: Table, b: Table, *, check_nulls: bool = True):
         if not torch.equal(va, vb):
             raise AssertionError(f"column {i} validity")
         if ca.dtype.is_string:
-            W = max(ca.chars2d.shape[1], cb.chars2d.shape[1])
+            W = max(_string_width(ca), _string_width(cb))
             da = _string_bytes(ca, W)
             db = _string_bytes(cb.to(dev), W)
             va, vb = va[:, None], vb[:, None]

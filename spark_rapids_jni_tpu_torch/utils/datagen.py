@@ -1,4 +1,5 @@
-"""Seeded random tables (fixed-width and dense-padded string columns), made
+"""Seeded random tables (fixed-width columns, and string columns dense-padded
+or in Arrow layout), made
 on the device, the edge data the hash kernels are checked on (special
 floats, random bloom bitsets), and event-log JSON documents for
 ``get_json_object`` (:func:`json_event_docs`, made on the host), with
@@ -40,13 +41,19 @@ def cycle_dtypes(dtypes: Sequence[DType], num_cols: int) -> list:
 def random_table(dtypes: Sequence[DType], num_rows: int, *, seed: int = 0,
                  null_probability: Optional[float] = 0.25,
                  string_lens: Tuple[int, int] = (0, 32),
+                 string_layout: str = "padded",
                  device=None) -> Table:
     """A table of ``num_rows`` random rows.  Each row of each column is
     null with ``null_probability``; ``None`` gives columns without a
-    validity mask.  A ``STRING`` column is dense-padded
-    (:func:`strings_with_lengths`): lengths uniform in ``string_lens``
-    (the bounds included; the reference ``data_profile``'s default
-    0..32), width the upper bound rounded up to 4."""
+    validity mask.  A ``STRING`` column has lengths uniform in
+    ``string_lens`` (the bounds included; the reference ``data_profile``'s
+    default 0..32) and is dense-padded (:func:`strings_with_lengths`,
+    width the upper bound rounded up to 4) or, with ``string_layout=
+    "arrow"``, the same strings in Arrow layout (the JAX package's
+    ``DataProfile.string_layout``)."""
+    if string_layout not in ("padded", "arrow"):
+        raise ValueError(f"string_layout {string_layout!r} is not 'padded' "
+                         f"or 'arrow'")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -64,7 +71,8 @@ def random_table(dtypes: Sequence[DType], num_rows: int, *, seed: int = 0,
                                  generator=gen, device=dev)
             c = strings_with_lengths(lens, hi, seed=seed + 1 + i,
                                      null_probability=None)
-            cols.append(Column.padded_strings(c.chars2d, c.lens, mask))
+            c = Column.padded_strings(c.chars2d, c.lens, mask)
+            cols.append(c.to_arrow() if string_layout == "arrow" else c)
             continue
         raw = torch.randint(0, 256, (num_rows * dt.itemsize,),
                             dtype=torch.uint8, generator=gen, device=dev)

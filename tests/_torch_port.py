@@ -85,6 +85,28 @@ def both_string_columns(rng, n, W, null_mode="some"):
     return jax_col, port
 
 
+def both_arrow_string_columns(rng, n, max_len, null_mode="some", lead=0):
+    """The same Arrow-layout string column in both packages (JAX Column,
+    port Column on the CPU): lengths uniform in 0..max_len, random bytes
+    (0x80 and above included), ``lead`` bytes of other chars before the
+    first row's, so that the offsets start at ``lead``."""
+    lens = rng.integers(0, max_len + 1, n).astype(np.int64)
+    offsets = np.full(n + 1, lead, np.int64)
+    offsets[1:] += np.cumsum(lens)
+    offsets = offsets.astype(np.int32)
+    chars = rng.integers(0, 256, int(offsets[-1]), dtype=np.uint8)
+    valid = _validity(rng, n, null_mode)
+    packed = (None if valid is None
+              else np.packbits(valid, bitorder="little"))
+    jax_col = jt.Column(jt.STRING, jnp.zeros((0,), jnp.uint8),
+                        None if packed is None else jnp.asarray(packed),
+                        jnp.asarray(offsets), jnp.asarray(chars))
+    port = pt.Column.arrow_strings(
+        torch.from_numpy(offsets), torch.from_numpy(chars),
+        None if packed is None else torch.from_numpy(packed))
+    return jax_col, port
+
+
 def both_tables(rng, names, n, null_mode="some"):
     """The same random table in both packages: (JAX Table, port Table on
     the CPU)."""
@@ -129,10 +151,17 @@ def port_table(rng, names, n, null_mode="some"):
 def jax_columns(table):
     """A JAX table as interop tuples (64-bit plane pairs as native values;
     decimal128 as uint32 ``[n, 4]`` limbs; a padded string column as its
-    chars2d and lengths)."""
+    chars2d and lengths, an Arrow one as its offsets rebased to 0 and its
+    own chars)."""
     out = []
     for c in table.columns:
         validity = None if c.validity is None else np.asarray(c.validity)
+        if c.dtype.is_string and c.chars2d is None:
+            offs = np.asarray(c.offsets).astype(np.int32)
+            lo, hi = int(offs[0]), int(offs[-1])
+            out.append(("string", offs - lo, np.asarray(c.chars)[lo:hi],
+                        validity))
+            continue
         if c.dtype.is_string:
             out.append(("string", np.asarray(c.chars2d),
                         np.asarray(c.str_lens()), validity))
@@ -149,7 +178,8 @@ def jax_columns(table):
 
 def assert_same_columns(port_table, jax_table):
     """Types, data bytes (under nulls too) and packed validity bytes equal;
-    a missing mask equals an all-valid one."""
+    a missing mask equals an all-valid one; string columns in the same
+    form, Arrow ones with equal offsets (rebased to 0) and chars."""
     got = interop.table_to_numpy_columns(port_table)
     want = jax_columns(jax_table)
     assert len(got) == len(want)
@@ -162,7 +192,7 @@ def assert_same_columns(port_table, jax_table):
         if gn == "string":
             np.testing.assert_array_equal(g[2], w[2],
                                           err_msg=f"column {i} lengths")
-        n = len(gd)
+        n = len(gd) - 1 if gn == "string" and gd.ndim == 1 else len(gd)
         gb = np.unpackbits(gv, bitorder="little")[:n] if gv is not None \
             else np.ones(n, np.uint8)
         wb = np.unpackbits(wv, bitorder="little")[:n] if wv is not None \

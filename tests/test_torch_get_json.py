@@ -15,7 +15,7 @@ import torch
 
 from spark_rapids_jni_tpu import table as jt
 from spark_rapids_jni_tpu.ops import get_json as jgj
-from spark_rapids_jni_tpu_torch import INT32, STRING, interop
+from spark_rapids_jni_tpu_torch import INT32, interop
 from spark_rapids_jni_tpu_torch import table as pt
 from spark_rapids_jni_tpu_torch.ops import get_json as pgj
 from spark_rapids_jni_tpu_torch.ops import get_json_object
@@ -332,10 +332,17 @@ def test_wildcards_wait_for_a_later_slice(path):
 
 
 def test_arrow_columns_wait_for_a_later_slice():
-    arrow = pt.Column(STRING, torch.zeros(0, dtype=torch.uint8))
-    with pytest.raises(NotImplementedError, match="Arrow"):
-        get_json_object(arrow, "$.a", device=CPU)
-    with pytest.raises(NotImplementedError, match="Arrow"):
+    """An Arrow column gives the padded column's answer (the JAX package's,
+    tests/test_torch_arrow_strings.py); a string column crosses from the
+    JAX package as four entries, and three raise."""
+    docs = ['{"a": 1}', None, '{"a": [1, {"b": "x"}]}', '{"b": 3}', ""]
+    arrow = pt.Column.strings(docs, device=CPU)
+    padded = pt.Column.strings_padded(docs, device=CPU)
+    got = get_json_object(arrow, "$.a", device=CPU)
+    want = get_json_object(padded, "$.a", device=CPU)
+    assert got.is_padded
+    pt.assert_tables_equivalent(pt.Table((got,)), pt.Table((want,)))
+    with pytest.raises(ValueError, match="crosses as"):
         interop.table_from_numpy_columns(
             [("string", np.zeros(3, np.int32), None)], device=CPU)
 

@@ -178,7 +178,17 @@ def test_launches_count_kernel_runs_only(cuda):
     assert torch.equal(got[1], want11[1])
     assert all(torch.equal(bits_view(d), bits_view(p))
                for d, p in zip(got[0], want11[0]))
+    st = Table((_arrow_column(torch.arange(100, device=cuda) % 9, 1, 3),
+                t.columns[0]))
+    slayout = compute_row_layout(st.dtypes)
+    args = _compact_args(st, slayout)
+    blob = kernels.compact_encode(*args)
+    assert torch.equal(blob, kernels.compact_encode_plain(*args))
+    gargs = _gather_args(blob, args[2], slayout)
+    assert all(torch.equal(a, b) for a, b in zip(
+        kernels.string_gather(*gargs), kernels.string_gather_plain(*gargs)))
     want = dict.fromkeys(kernels.launches, 1)
+    want["decode_planes"] = 2       # one more in _gather_args
     assert kernels.launches == want
     empty = kernels.decode_planes(rows[:0], layout)
     assert empty[0].shape == (row_mxu._inverse_plan(layout)[0].num_words, 0)
@@ -192,6 +202,11 @@ def test_launches_count_kernel_runs_only(cuda):
         0, layout.fixed_row_size)
     assert kernels.from_rows_cols(rows10[:0], layout)[1].shape == (
         layout.num_columns, 0)
+    empty_args = _compact_args(slice_table(st, 0, 0), slayout)
+    assert kernels.compact_encode(*empty_args).shape == (0,)
+    assert [c.shape for c in kernels.string_gather(
+        *_gather_args(kernels.compact_encode(*empty_args), empty_args[2],
+                      slayout))] == [(0,)]
     assert kernels.launches == want
 
 
@@ -708,3 +723,111 @@ def test_row_kernels_past_2_31_bytes(cuda):
     for c, d in zip(t.columns, datas):
         assert torch.equal(bits_view(c.data), bits_view(d))
     assert torch.equal(vmask, torch.stack([c.validity for c in t.columns]))
+
+
+# ---------------------------------------------------------------------------
+# The compact rows' ragged copies: compact_encode and string_gather
+# ---------------------------------------------------------------------------
+
+def _arrow_column(lens, seed, lead, nulls=0.25):
+    """An Arrow string column of int lengths ``lens`` on their device:
+    random bytes, the first row's chars ``lead`` bytes into the buffer,
+    each row null with ``nulls``."""
+    dev = lens.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n = lens.shape[0]
+    offsets = torch.full((n + 1,), lead, dtype=torch.int64, device=dev)
+    offsets[1:] += torch.cumsum(lens.to(torch.int64), 0)
+    chars = torch.randint(0, 256, (int(offsets[-1]) + 5,), dtype=torch.uint8,
+                          generator=gen, device=dev)
+    validity = pack_bools(torch.rand(n, generator=gen, device=dev) >= nulls)
+    return Column.arrow_strings(offsets.to(torch.int32), chars, validity)
+
+
+def _compact_args(table, layout):
+    """The compact encode's arguments for the whole of ``table``."""
+    return prc._compact_batch_inputs(table, layout, 0, table.num_rows,
+                                     *prc._compact_plan(table, layout))
+
+
+def _gather_args(blob, row_offsets, layout):
+    """The string gather's arguments for compact rows ``blob`` (one K2
+    launch)."""
+    return prc._compact_decode(blob, row_offsets, layout)[2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,int16", [(k, False) for k in range(12)]
+                         + [(3, True)])
+def test_compact_kernels_match_plain_versions(cuda, k, int16):
+    """The compact encode and the string gather against their plain
+    versions, and K2 over the gathered fixed sections: three Arrow columns
+    of lengths 0..67 whose chars start at odd offsets, an INT64 (and an
+    INT16) and k INT8 columns (fixed_end 33 to 45, and 38: every residue
+    mod 8), 1 and 389 rows and a slice from row 1; then the entry points
+    on the card against the CPU's."""
+    for n in (1, 389):
+        fixed = random_table([INT8] * k + [INT64] + [INT16] * int16, n,
+                             seed=k, device=cuda)
+        strs = [_arrow_column((torch.arange(n, device=cuda) * (7 + j) + j)
+                              % 68, seed=j, lead=2 * j + 1)
+                for j in range(3)]
+        t = Table((strs[0], strs[1], fixed.columns[k], strs[2],
+                   *fixed.columns[k + 1:], *fixed.columns[:k]))
+        layout = compute_row_layout(t.dtypes)
+        for tt in (t, slice_table(t, 1, n)):
+            args = _compact_args(tt, layout)
+            blob = kernels.compact_encode(*args)
+            assert torch.equal(blob, kernels.compact_encode_plain(*args))
+            fsec = prc._compact_fixed_sections(blob, args[2], layout)
+            pk, vk = kernels.decode_planes(fsec, layout)
+            pp, vp = kernels.decode_planes_plain(fsec, layout)
+            assert torch.equal(pk, pp) and torch.equal(vk, vp)
+            gargs = _gather_args(blob, args[2], layout)
+            for a, b in zip(kernels.string_gather(*gargs),
+                            kernels.string_gather_plain(*gargs)):
+                assert torch.equal(a, b)
+            kernels.reset_launches()
+            [rows] = prc.convert_to_rows(tt, device=cuda)
+            back = prc.convert_from_rows(rows, t.dtypes, device=cuda)
+            assert (kernels.launches["compact_encode"],
+                    kernels.launches["decode_planes"],
+                    kernels.launches["string_gather"]) == \
+                ((1, 1, 1) if tt.num_rows else (0, 0, 0))
+            [want] = prc.convert_to_rows(tt.to("cpu"), device="cpu")
+            assert torch.equal(rows.data.cpu(), want.data)
+            assert torch.equal(rows.offsets.cpu(), want.offsets)
+            assert_tables_equivalent(tt, back, check_nulls=False)
+            for a, b in zip(back.columns, prc.convert_from_rows(
+                    want, t.dtypes, device="cpu").columns):
+                if a.dtype.is_string:
+                    assert torch.equal(a.offsets.cpu(), b.offsets)
+                    assert torch.equal(a.chars.cpu(), b.chars)
+
+
+@pytest.mark.gpu
+def test_compact_batches_and_edges_on_the_card(cuda):
+    """Several batches (a size_limit of 32 rows), zero rows, a table of
+    strings only with a padded column beside it: blobs and decoded columns
+    equal to the CPU run's, one compact encode a batch."""
+    lens = torch.arange(203, device=cuda) % 61
+    t = Table((_arrow_column(lens, 1, 0), _arrow_column(lens.flip(0), 2, 7),
+               strings_with_lengths(lens.to(torch.int32), 60, seed=3)))
+    for tt, limit in ((t, 32 * 256), (slice_table(t, 5, 5), 1 << 20)):
+        kernels.reset_launches()
+        batches = prc.convert_to_rows(tt, size_limit=limit, device=cuda)
+        assert kernels.launches["compact_encode"] == (
+            len(batches) if tt.num_rows else 0)
+        want = prc.convert_to_rows(tt.to("cpu"), size_limit=limit,
+                                   device="cpu")
+        assert [b.num_rows for b in batches] == [b.num_rows for b in want]
+        start = 0
+        for g, w in zip(batches, want):
+            assert torch.equal(g.data.cpu(), w.data)
+            back = prc.convert_from_rows(g, tt.dtypes, device=cuda)
+            assert_tables_equivalent(
+                slice_table(tt, start, start + g.num_rows), back,
+                check_nulls=False)
+            start += g.num_rows
+    assert len(batches) == 1 and len(want) == 1

@@ -140,21 +140,29 @@ def test_oracle_matches_jax_oracle(rng):
 
 
 def test_compact_and_arrow_strings_wait_for_a_later_slice(rng):
-    """A compact (not padded) string blob and an Arrow-layout string column
-    raise NotImplementedError; the grouped forms and the gather oracle
-    refuse string tables, as the JAX package's do."""
+    """A batch that is not padded decodes as compact rows: a fixed-width
+    blob's 8-byte rows, shorter than the string layout's fixed section,
+    raise ValueError; an Arrow-layout string column encodes to compact rows
+    that decode back to it; the grouped forms and the gather oracle refuse
+    string tables, as the JAX package's do."""
     table = port_table(rng, ["int32"], 4)
     dtypes = [dtype_from_name("int32"), dtype_from_name("string")]
     rows = prc.convert_to_rows(table, device=CPU)[0]
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="malformed compact rows"):
         prc.convert_from_rows(rows, dtypes, device=CPU)
     with pytest.raises(ValueError, match="grouped forms"):
         prc.convert_from_rows_grouped(rows, dtypes, device=CPU)
     with pytest.raises(ValueError, match="does not support strings"):
         prc.convert_from_rows_fixed_width_optimized(rows, dtypes, device=CPU)
-    arrow = Column(dtypes[1], torch.zeros(4, dtype=torch.uint8))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        prc.convert_to_rows(Table(table.columns + (arrow,)), device=CPU)
+    arrow = Table(table.columns + (
+        Column.strings(["a", None, "bc", ""], device=CPU),))
+    [compact] = prc.convert_to_rows(arrow, device=CPU)
+    assert not compact.is_padded and compact.str_widths is None
+    assert_tables_equivalent(
+        arrow, prc.convert_from_rows(compact, dtypes, device=CPU),
+        check_nulls=False)
+    with pytest.raises(ValueError, match="does not support strings"):
+        prc.convert_to_rows_fixed_width_optimized(arrow, device=CPU)
     padded = Column.strings_padded(["a", None, "bc", ""], device=CPU)
     with pytest.raises(ValueError, match="does not support strings"):
         prc.convert_to_rows_fixed_width_optimized(
