@@ -35,9 +35,14 @@ launch count set to 0 just before the path and read just after:
   ``compact_rows_host`` of its padded encode, murmur3 and xxhash64 of the
   Arrow table against the padded table's, ``get_json_object`` over
   100,000 Arrow event-log documents against the padded column's answer;
-  and compact rows at edge shapes (``compact_edges``: fixed_end of every
-  residue mod 8, lengths 0..67 at odd offsets, batches forced by
-  ``size_limit``, zero rows, strings only), each against the CPU run;
+  the two compact kernels' tile plans (rows a tile, stage bytes, the share
+  of rows on the long-row route, as their launches mark it) and their
+  times on every ring of ``ENCODE_RINGS`` and ``GATHER_RINGS`` and with
+  every tile sent down the long-row route; and compact rows at edge shapes
+  (``compact_edges``: fixed_end of every residue mod 8, lengths 0..67 at
+  odd offsets, batches forced by ``size_limit``, zero rows, strings only,
+  a 100,000-byte string among short rows), each against the CPU run, and
+  33 and 128 string columns of raw kernel arguments;
 - the two-stage encode: ``convert_to_rows`` of 6M rows of the 212-column
   schema, whose resident pack passes the 4 GiB cap, in six batches of one
   K3 launch each, every batch equal to K1's rows for the same rows;
@@ -132,6 +137,8 @@ N_4M = 4_000_000
 N_6M = 6_000_000
 # rows of the padded batch slice compacted on the host
 N_COMPACT = 100_000
+# a string longer than any stage of the compact kernels' plans
+LONG_STRING = 100_000
 # rows of the 64-bit offsets phase: 213 planes of this many words pass 2^31
 N_WIDE = 10_240_000
 # a padded string column whose chars pass 2^31 bytes
@@ -213,6 +220,12 @@ N_GJO_WIDE, W_GJO_WIDE = 600_000, 4096
 SERVE_COLS, SERVE_REQUESTS = 212, 16
 SERVE_ROWS, SERVE_SMALL_ROWS = (33_000, 65_536), (9_000, 16_384)
 SERVE_THREAD_REQUESTS, SERVE_THREAD_ROWS = 16, (2_000, 8_000)
+
+# the rings (blocks an SM, stages a block) the compact encode's and the
+# string gather's plans are timed on at the string axis, beside the
+# wrappers' own (kernels.ENCODE_RING, GATHER_RING)
+ENCODE_RINGS = ((1, 2), (1, 3), (2, 2), (2, 3))
+GATHER_RINGS = ((2, 3), (2, 4), (3, 3), (1, 3))
 
 KERNELS = (  # name, the TPU kernel it replaces
     ("grouped_encode", "spark_rapids_jni_tpu/ops/row_mxu.py:513"),
@@ -1183,17 +1196,77 @@ def _compact_bytes(eargs) -> int:
             + sum(s[0].numel() for s in strings) + total)
 
 
-def _gather_bytes(gargs) -> int:
+def _gather_bytes(gargs, lengths: bool = False) -> int:
     """Bytes the string gather must move: the row offsets and each
-    column's pair and output offsets read, each char read and written."""
+    column's pair offsets and output offsets read (its lengths are the
+    output offsets' steps), each char read and written.  With ``lengths``,
+    each column's int32 lengths too, which the kernel does not read (the
+    older records' bound, kept beside it for comparison)."""
     _, row_offsets, pairs, totals = gargs
     n = row_offsets.shape[0] - 1
-    return 4 * (n + 1) + len(pairs) * (12 * n + 4) + 2 * sum(totals)
+    per_row = 12 if lengths else 8
+    return 4 * (n + 1) + len(pairs) * (per_row * n + 4) + 2 * sum(totals)
 
 
 def _byte_bound(nbytes: int) -> dict:
     return {"bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
             "bound_by": "bytes"}
+
+
+def _marked_launch(launch, args, plan, n: int):
+    """A compact kernel's launch (``kernels._launch_compact_encode`` or
+    ``_launch_string_gather``) over ``args`` by ``plan``, with the tiles it
+    sends down the long-row route marked: (its output, bool [tiles])."""
+    flags = torch.zeros(-(-n // plan.tile_rows), dtype=torch.uint8,
+                        device=CARD)
+    return launch(args, plan, flags), flags.bool()
+
+
+def _tile_plan_record(plan, longs, n: int) -> dict:
+    """A compact kernel's tile plan and the share of its rows that took the
+    long-row route (``longs``: the tiles its launch marked long)."""
+    idx = longs.nonzero().view(-1).to(torch.int64)
+    long_rows = int(((idx + 1) * plan.tile_rows).clamp(max=n).sum()
+                    - (idx * plan.tile_rows).sum())
+    return {**dataclasses.asdict(plan), "smem_bytes": plan.smem_bytes,
+            "long_tiles": int(idx.numel()), "long_row_share": long_rows / n}
+
+
+def _ring_sweep(eargs, gargs, blob, chars, n: int) -> dict:
+    """Each kernel on every ring of ENCODE_RINGS / GATHER_RINGS, and on its
+    wrapper's plan with every tile sent down the long-row route
+    (``TilePlan.long_route``, under ``"long_route"``): its plan, the tiles
+    its launch marked long, its output against the wrapper's (``blob``,
+    ``chars``) and its time."""
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    out = {"compact_encode": {}, "string_gather": {}}
+    enc = [(str(r), kernels.encode_plan(eargs, ring=r)) for r in ENCODE_RINGS]
+    for ring, plan in enc + [("long_route",
+                              kernels.encode_plan(eargs).long_route())]:
+        got, longs = _marked_launch(kernels._launch_compact_encode, eargs,
+                                    plan, n)
+        check(max_abs_err(got, blob) == 0, f"compact encode on ring {ring}")
+        del got
+        out["compact_encode"][ring] = {
+            **_tile_plan_record(plan, longs, n),
+            "ms": median_ms(lambda: kernels._launch_compact_encode(eargs, plan),
+                            flush=True)}
+    gat = [(str(r), kernels.gather_plan(gargs, ring=r)) for r in GATHER_RINGS]
+    for ring, plan in gat + [("long_route",
+                              kernels.gather_plan(gargs).long_route())]:
+        got, longs = _marked_launch(kernels._launch_string_gather, gargs,
+                                    plan, n)
+        for a, b in zip(got, chars):
+            check(torch.equal(a, b), f"string gather on ring {ring}")
+        del got
+        out["string_gather"][ring] = {
+            **_tile_plan_record(plan, longs, n),
+            "ms": median_ms(lambda: kernels._launch_string_gather(gargs, plan),
+                            flush=True)}
+    for name in out:
+        check(out[name]["long_route"]["long_row_share"] == 1.0,
+              f"{name}: tiles off the long-row route under its long plan")
+    return out
 
 
 def phase_arrow_strings_1m(errs, timing):
@@ -1265,19 +1338,31 @@ def phase_arrow_strings_1m(errs, timing):
     blob, gargs = _hold_compact(eargs, layout, errs, "1M batch")
     check(torch.equal(blob, rows.data), "1M blob != the entry point's")
     del blob
+    # the tile plans the wrappers take, and every ring's, timed
+    enc_plan, gat_plan = kernels.encode_plan(eargs), kernels.gather_plan(gargs)
+    sweep = _ring_sweep(eargs, gargs, rows.data,
+                        kernels.string_gather(*gargs), N_1M)
     fixed = prc._compact_fixed_sections(rows.data, rows.offsets, layout)
     timing["compact_encode"] = {
         "rows": N_1M, "ms": median_ms(lambda: kernels.compact_encode(*eargs),
                                       flush=True),
         "plain_ms": median_ms(lambda: kernels.compact_encode_plain(*eargs),
                               runs=3, warmup=1),
-        **_byte_bound(_compact_bytes(eargs))}
+        **_byte_bound(_compact_bytes(eargs)),
+        "plan": _tile_plan_record(enc_plan, _marked_launch(
+            kernels._launch_compact_encode, eargs, enc_plan, N_1M)[1], N_1M),
+        "rings": sweep["compact_encode"]}
     timing["string_gather"] = {
         "rows": N_1M, "ms": median_ms(lambda: kernels.string_gather(*gargs),
                                       flush=True),
         "plain_ms": median_ms(lambda: kernels.string_gather_plain(*gargs),
                               runs=3, warmup=1),
-        **_byte_bound(_gather_bytes(gargs))}
+        **_byte_bound(_gather_bytes(gargs)),
+        "bound_ms_with_lengths": _byte_bound(
+            _gather_bytes(gargs, lengths=True))["bound_ms"],
+        "plan": _tile_plan_record(gat_plan, _marked_launch(
+            kernels._launch_string_gather, gargs, gat_plan, N_1M)[1], N_1M),
+        "rings": sweep["string_gather"]}
     k2_bytes = (N_1M * kernels._decode_load_bytes(layout)
                 + 4 * row_mxu._inverse_plan(layout)[0].num_words * N_1M
                 + layout.num_columns * N_1M // 8)
@@ -1345,11 +1430,13 @@ def phase_arrow_strings_1m(errs, timing):
     return total
 
 
-def _edge_table(n, k, seed, int16=False):
+def _edge_table(n, k, seed, int16=False, long_row=None):
     """Three Arrow string columns of lengths 0..67 whose chars start at odd
     offsets (each column's buffer has 1, 3 or 5 bytes before its first
     row's), an INT64 (and an INT16) and k INT8 columns (fixed_end 33 + k,
-    or 35 + k with the INT16, and the validity bytes), 25% nulls."""
+    or 35 + k with the INT16, and the validity bytes), 25% nulls; with
+    ``long_row``, that row of the first string holds LONG_STRING bytes,
+    past any stage of the compact kernels' plans."""
     from spark_rapids_jni_tpu_torch import INT8, INT16, INT64, Column, Table
     from spark_rapids_jni_tpu_torch.table import pack_bools
     from spark_rapids_jni_tpu_torch.utils import random_table
@@ -1360,6 +1447,8 @@ def _edge_table(n, k, seed, int16=False):
     strs = []
     for j in range(3):
         lens = (torch.arange(n, device=CARD) * (7 + j) + j) % 68
+        if j == 0 and long_row is not None:
+            lens[long_row] = LONG_STRING
         offsets = torch.full((n + 1,), 2 * j + 1, dtype=torch.int64,
                              device=CARD)
         offsets[1:] += torch.cumsum(lens, 0)
@@ -1372,13 +1461,46 @@ def _edge_table(n, k, seed, int16=False):
                   *fixed.columns[1:]))
 
 
+def _hold_many_columns(errs, k: int, n: int) -> dict:
+    """Both compact kernels over raw arguments of ``k`` string columns
+    (past what a JCUDF layout holds where k is 128), lengths 0..67, each
+    column's chars at another residue mod 16, against their plain
+    versions by the wrappers' plans."""
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    from spark_rapids_jni_tpu_torch.utils import (
+        compact_encode_args, compact_gather_args,
+    )
+    gen = torch.Generator(device=CARD)
+    gen.manual_seed(k)
+    lens = torch.randint(0, 68, (n, k), generator=gen, device=CARD)
+    fe = 8 * k + (k + 7) // 8
+    eargs = compact_encode_args(lens, fe, seed=k)
+    blob = kernels.compact_encode(*eargs)
+    err = max_abs_err(blob, kernels.compact_encode_plain(*eargs))
+    errs["compact_encode"] = max(errs["compact_encode"], err)
+    check(err == 0, f"compact encode != plain: {k} string columns")
+    gargs = compact_gather_args(blob, eargs[2], fe, lens)
+    for got, want in zip(kernels.string_gather(*gargs),
+                         kernels.string_gather_plain(*gargs)):
+        errs["string_gather"] = max(errs["string_gather"],
+                                    max_abs_err(got, want))
+        check(torch.equal(got, want), f"string gather != plain: {k} string "
+                                      f"columns")
+    return {"rows": n, "columns": k,
+            "encode_tile_rows": kernels.encode_plan(eargs).tile_rows,
+            "gather_tile_rows": kernels.gather_plan(gargs).tile_rows}
+
+
 def phase_compact_edges(errs):
     """Compact rows at edge shapes, for correctness only: fixed_end of
     every residue mod 8 (33 to 41), lengths 0..67 at odd offsets on both
     sides, a slice from an odd row in batches forced by size_limit, zero
-    rows, a table of strings only beside a padded column; each batch
-    byte-equal to the CPU run of the entry point, each kernel against its
-    plain version, each decode bit-exact."""
+    rows, a table of strings only beside a padded column, a row past every
+    stage of the kernels' plans among short rows (its tile on the long-row
+    route); each batch byte-equal to the CPU run of the entry point, each
+    kernel against its plain version, each decode bit-exact; then 33 and
+    128 string columns of raw arguments, each kernel against its plain
+    version."""
     from spark_rapids_jni_tpu_torch import Table
     from spark_rapids_jni_tpu_torch.ops import (
         compute_row_layout, convert_from_rows, convert_to_rows,
@@ -1398,6 +1520,8 @@ def phase_compact_edges(errs):
                               (torch.arange(501, device=CARD) % 61)
                               .to(torch.int32), 60, seed=3)))
     tables.append((strings_only, 32 * 320))
+    long_table = _edge_table(3001, 2, seed=98, long_row=1500)
+    tables.append((long_table, 1 << 30))
     for tt, limit in tables:
         layout = compute_row_layout(tt.dtypes)
         what = f"{tt.num_rows} rows, fixed_end {layout.fixed_end}"
@@ -1423,8 +1547,29 @@ def phase_compact_edges(errs):
             cases += 1
         batches_seen = max(batches_seen, len(batches))
     check(batches_seen > 2, f"no edge table took several batches")
+    # the long row's tile goes the long-row route in both kernels
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    arrow = Table(tuple(c.to_arrow() for c in long_table.columns))
+    layout = compute_row_layout(arrow.dtypes)
+    eargs = _encode_args(arrow, layout, 0, 3001,
+                         prc._compact_plan(arrow, layout))
+    gargs = prc._compact_decode(kernels.compact_encode(*eargs), eargs[2],
+                                layout)[2]
+    long_tiles = {
+        "compact_encode": int(_marked_launch(
+            kernels._launch_compact_encode, eargs, kernels.encode_plan(eargs),
+            3001)[1].sum()),
+        "string_gather": int(_marked_launch(
+            kernels._launch_string_gather, gargs, kernels.gather_plan(gargs),
+            3001)[1].sum())}
+    check(long_tiles == {"compact_encode": 1, "string_gather": 1},
+          f"long tiles of the long-row table: {long_tiles}")
+    many = [_hold_many_columns(errs, k, n) for k, n in ((33, 6701),
+                                                        (128, 997))]
     emit(phase="compact_edges", cases=cases, most_batches=batches_seen,
-         equal_cpu=True, equal_plain=True, roundtrip_bit_exact=True)
+         long_row_bytes=LONG_STRING, long_tiles=long_tiles,
+         many_columns=many, equal_cpu=True, equal_plain=True,
+         roundtrip_bit_exact=True)
 
 
 def _pack_bytes(table, layout, size: int) -> int:

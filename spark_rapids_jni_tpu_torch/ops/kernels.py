@@ -30,8 +30,10 @@ row-conversion kernels' wrappers and plain PyTorch versions.
 - :func:`compact_encode` (``csrc/compact_encode.cu``) and
   :func:`string_gather` (``csrc/string_gather.cu``) replace no TPU kernel:
   the ragged copies of the compact JCUDF rows (the JAX package's XLA
-  ``_to_rows_variable_jit`` and ``_gather_one_string``), one warp a row,
-  every string column in one launch.
+  ``_to_rows_variable_jit`` and ``_gather_one_string``), every string
+  column in one launch, tiles of rows moved through a ring of shared-memory
+  stages by bulk copies by the plans :func:`compact_encode_plan` and
+  :func:`string_gather_plan`.
 
 A wrapper runs the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; there is no fallback.  Each launch
@@ -46,6 +48,7 @@ name carries a hash of its sources and flags, so an edit rebuilds it.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -146,9 +149,11 @@ _ENTRY = {
                                           _VP]),
     "from_rows_cols": ("srj_from_rows_cols", [_VP, _VP, _I64, _I32, _VP,
                                               _I64, _I32, _VP]),
-    "compact_encode": ("srj_compact_encode", [_VP, _VP, _I32, _I32, _VP,
-                                              _I64, _VP, _I32, _VP]),
-    "string_gather": ("srj_string_gather", [_VP, _VP, _VP, _I64, _I32, _VP]),
+    "compact_encode": ("srj_compact_encode", [
+        _VP, _VP, _I32, _I32, _VP, _I64, _VP, _I32, _I32, _I32, _I32, _I32,
+        _VP, _I32, _VP]),
+    "string_gather": ("srj_string_gather", [
+        _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32, _I32, _VP, _I32, _VP]),
 }
 
 
@@ -876,13 +881,207 @@ class _CompactCols(ctypes.Structure):
 
 class _GatherStr(ctypes.Structure):
     """csrc/string_gather.cu's SrjGatherStr."""
-    _fields_ = [("str_off", ctypes.c_void_p), ("str_len", ctypes.c_void_p),
-                ("out_off", ctypes.c_void_p), ("out", ctypes.c_void_p)]
+    _fields_ = [("str_off", ctypes.c_void_p), ("out_off", ctypes.c_void_p),
+                ("out", ctypes.c_void_p)]
 
 
 class _GatherCols(ctypes.Structure):
     """csrc/string_gather.cu's SrjGatherCols."""
     _fields_ = [("col", _GatherStr * MAX_STR_COLS), ("ncols", ctypes.c_int32)]
+
+
+
+# ---------------------------------------------------------------------------
+# The tile plans of the compact encode and the string gather
+# ---------------------------------------------------------------------------
+
+# csrc/ragged_copy.cuh's ring: the most rows a tile, consumer warps a
+# block and stages; the bytes before the stages (the mbarriers) and a
+# stage's header
+TILE_MAX_ROWS, TILE_MAX_WARPS, TILE_MAX_STAGES = 128, 16, 4
+_TILE_BAR_BYTES, _SLOT_HEADER = 128, 16
+# an H100's shared memory: an SM's 228 KB, of which each block reserves
+# 1 KB and takes at most 227 KB
+SM_SMEM_BYTES, BLOCK_SMEM_RESERVED, BLOCK_SMEM_MAX = 233_472, 1_024, 232_448
+# a stage is sized for its tile's expected bytes times this, so that tiles
+# of rows a little longer than the batch's mean still fit
+_TILE_MARGIN = 1.25
+# each kernel's ring: (blocks an SM, stages a block), the fastest of those
+# chip_smoke.py times at the string axis (PERF.md)
+ENCODE_RING = (1, 2)
+GATHER_RING = (2, 3)
+# consumer warps an SM (csrc/compact_encode.cu and string_gather.cu take
+# about 56 registers a thread: 36 warps an SM), shared by its blocks
+_SM_CONSUMER_WARPS = 32
+
+
+def _round16(nbytes) -> int:
+    return -(-int(nbytes) // 16) * 16
+
+
+def _room(nbytes: int) -> int:
+    """The room of a staged part of ``nbytes`` bytes: whole 16-byte chunks
+    and one more, since its aligned chunks may start inside the first
+    (``ragged_copy.cuh``'s ``stage_room``)."""
+    return _round16(nbytes) + 16
+
+
+def _encode_slot(tile_rows: int, ncols: int, stride: int,
+                 chars_bytes: int = 0) -> Dict[str, int]:
+    """Where an encode stage's parts start, in bytes from the stage's start,
+    and its ``bytes``: ``ragged_copy.cuh``'s ``encode_slot`` (the block's
+    one image of a tile's output follows the stages)."""
+    rows = _SLOT_HEADER + _round16(8 * ncols)
+    col_room = _room(4 * (tile_rows + 1))
+    col_room += 16 if col_room % 32 == 0 else 0
+    cols = rows + _room(4 * (tile_rows + 1))
+    fixed = cols + ncols * col_room
+    chars = fixed + _room(tile_rows * stride)
+    return {"rows": rows, "cols": cols, "col_room": col_room,
+            "fixed": fixed, "chars": chars, "bytes": chars + chars_bytes}
+
+
+def _gather_slot(tile_rows: int, ncols: int,
+                 chars_bytes: int = 0) -> Dict[str, int]:
+    """Where a gather stage's parts start and its ``bytes``:
+    ``ragged_copy.cuh``'s ``gather_slot`` (a column's block holds its pair
+    offsets, then its output offsets at ``out_off``; the block's one image
+    of a tile's output follows the stages)."""
+    places = _SLOT_HEADER + _round16(8 * ncols)
+    bases = places + _round16(4 * ncols)
+    spans = bases + _round16(4 * tile_rows)
+    rows = spans + _round16(8 * tile_rows)
+    cols = rows + _room(4 * (tile_rows + 1))
+    col_bytes = _room(4 * tile_rows) + _room(4 * (tile_rows + 1))
+    chars = cols + ncols * col_bytes
+    return {"places": places, "bases": bases, "spans": spans, "rows": rows,
+            "cols": cols, "col_bytes": col_bytes,
+            "out_off": _room(4 * tile_rows), "chars": chars,
+            "bytes": chars + chars_bytes}
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """How the compact encode or the string gather walks a batch: tiles of
+    ``tile_rows`` rows, ``consumer_warps`` consumer warps beside the
+    producer warp of a block, a ring of ``stages`` stages of
+    ``slot_bytes`` each, with room for ``chars_bytes`` of chars, and one
+    image of ``image_bytes`` for a tile's output.  A tile whose bytes pass
+    a room takes the long-row route."""
+    tile_rows: int
+    consumer_warps: int
+    stages: int
+    chars_bytes: int
+    image_bytes: int
+    slot_bytes: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """Shared memory a block takes: the mbarriers, the stages, the
+        image."""
+        return (_TILE_BAR_BYTES + self.stages * self.slot_bytes
+                + self.image_bytes)
+
+    def long_route(self) -> "TilePlan":
+        """This plan with a 16-byte image, its room given to the chars: the
+        same shared memory, and every tile of more than 16 output bytes on
+        the long-row route (to time that route)."""
+        spare = (self.image_bytes - 16) // self.stages // 16 * 16
+        return dataclasses.replace(self, chars_bytes=self.chars_bytes + spare,
+                                   image_bytes=16,
+                                   slot_bytes=self.slot_bytes + spare)
+
+
+def _block_budget(blocks_per_sm: int) -> int:
+    """The bytes of a block's stages (and image) when ``blocks_per_sm``
+    blocks share an SM's shared memory."""
+    block = min(BLOCK_SMEM_MAX, SM_SMEM_BYTES // blocks_per_sm
+                - BLOCK_SMEM_RESERVED)
+    return (block - _TILE_BAR_BYTES) // 16 * 16
+
+
+def _consumer_warps(rows: int, blocks: int) -> int:
+    """Consumer warps a block: at most :data:`TILE_MAX_WARPS`, one a row, and
+    the SM's :data:`_SM_CONSUMER_WARPS` shared by its blocks."""
+    return max(1, min(TILE_MAX_WARPS, rows, _SM_CONSUMER_WARPS // blocks))
+
+
+def _sized(need, stages: int, budget: int, tile_rows) -> Tuple[int, ...]:
+    """(rows, a stage's parts of fixed size, its chars room, the image
+    room) of a ring of ``stages`` stages and one image in ``budget`` bytes,
+    ``need(rows)`` giving a stage's parts of fixed size and the chars and
+    image that rows of the batch's mean size need.  The rows are
+    ``tile_rows`` where given, else the most whose stages and image fit: a
+    multiple of 8 up to :data:`TILE_MAX_ROWS`, or fewer than 8 where no
+    multiple fits, and 1 where nothing does (its tiles then take the
+    long-row route whenever they pass the rooms).  The rest of the budget
+    goes to the two rooms in proportion."""
+    def fits(rows):
+        fixed, c, i = need(rows)
+        return stages * (fixed + c) + i <= budget
+
+    if tile_rows is None:
+        counts = list(range(1, 8)) + list(range(8, TILE_MAX_ROWS + 1, 8))
+        tile_rows = max([r for r in counts if fits(r)], default=1)
+    fixed, c, i = need(tile_rows)
+    room = budget - stages * fixed
+    _check(room >= 16 * (stages + 1),
+           f"no room for chars and an image in {budget} bytes at "
+           f"{tile_rows} rows and {stages} stages")
+    chars_bytes = max(16, room * c // (stages * c + i) // 16 * 16)
+    return (tile_rows, fixed, chars_bytes,
+            (room - stages * chars_bytes) // 16 * 16)
+
+
+def compact_encode_plan(n: int, stride: int, ncols: int, total_bytes: int,
+                        char_bytes: int, *, ring=None,
+                        tile_rows=None) -> TilePlan:
+    """The compact encode's plan for a batch of ``n`` rows of
+    ``total_bytes``, fixed sections at ``stride``, ``ncols`` string columns
+    of ``char_bytes`` chars in all, on the ring ``(blocks an SM, stages a
+    block)`` (:data:`ENCODE_RING`).  A stage holds the tile's parts
+    of fixed size (``_encode_slot``) and room for its chars (each column's
+    range widened to its 16-byte chunks), and the block one image of a
+    tile's output, both sized from the batch's mean row times
+    :data:`_TILE_MARGIN` (:func:`_sized`)."""
+    blocks, stages = ring or ENCODE_RING
+    row, chars = total_bytes / max(n, 1), char_bytes / max(n, 1)
+
+    def need(rows):
+        return (_encode_slot(rows, ncols, stride)["chars"],
+                _round16(_TILE_MARGIN * rows * chars + 32 * ncols),
+                _round16(_TILE_MARGIN * rows * row + 16))
+
+    rows, fixed, chars_bytes, image_bytes = _sized(
+        need, stages, _block_budget(blocks), tile_rows)
+    return TilePlan(rows, _consumer_warps(rows, blocks), stages, chars_bytes,
+                    image_bytes, fixed + chars_bytes)
+
+
+def string_gather_plan(n: int, ncols: int, blob_bytes: int, char_bytes: int,
+                       *, ring=None, tile_rows=None) -> TilePlan:
+    """The string gather's plan for a batch of ``n`` rows in ``blob_bytes``
+    with ``ncols`` string columns of ``char_bytes`` chars in all, on the
+    ring ``(blocks an SM, stages a block)`` (:data:`GATHER_RING`).  A stage
+    holds the tile's pairs and offsets (``_gather_slot``) and room for its
+    chars, each row's span (its chars, widened to 16-byte chunks: 16 bytes
+    more a row on the mean); the block one image of a tile's output (each
+    column's part from its address's offset in a 16-byte word), both
+    sized from the batch's mean row times :data:`_TILE_MARGIN`
+    (:func:`_sized`)."""
+    blocks, stages = ring or GATHER_RING
+    per_row = (char_bytes + 16 * n) / max(n, 1)
+    out_row = char_bytes / max(n, 1)
+
+    def need(rows):
+        return (_gather_slot(rows, ncols)["chars"],
+                _round16(_TILE_MARGIN * rows * per_row + 16),
+                _round16(_TILE_MARGIN * rows * out_row + 32 * ncols))
+
+    rows, fixed, chars_bytes, image_bytes = _sized(
+        need, stages, _block_budget(blocks), tile_rows)
+    return TilePlan(rows, _consumer_warps(rows, blocks), stages, chars_bytes,
+                    image_bytes, fixed + chars_bytes)
 
 
 def _is_vector(t: torch.Tensor, dtype, length: int, dev) -> bool:
@@ -972,7 +1171,8 @@ def compact_encode(fixed: torch.Tensor, fixed_end: int,
     its chars from absolute offset ``lo`` on, and its absolute int32
     offsets ``[n + 1]`` of the batch's rows; the caller guarantees every
     row's chars inside ``chars`` and each row's size (the JCUDF row
-    sizes)."""
+    sizes).  On the card it runs by :func:`encode_plan` of its
+    arguments."""
     _check_compact_encode(fixed, fixed_end, row_offsets, total_bytes,
                           strings)
     dev = fixed.device
@@ -980,7 +1180,42 @@ def compact_encode(fixed: torch.Tensor, fixed_end: int,
         return compact_encode_plain(fixed, fixed_end, row_offsets,
                                     total_bytes, strings)
     _check(dev.type == "cuda", f"no kernel for device {dev}")
+    args = (fixed, fixed_end, row_offsets, total_bytes, strings)
+    return _launch_compact_encode(args, encode_plan(args))
+
+
+def encode_plan(args, **kw) -> TilePlan:
+    """:func:`compact_encode_plan` of the compact encode's arguments
+    ``args`` (keywords passed on)."""
+    fixed, _, _, total_bytes, strings = args
+    return compact_encode_plan(fixed.shape[0], fixed.shape[1], len(strings),
+                               total_bytes,
+                               sum(c.numel() for c, _, _ in strings), **kw)
+
+
+def _long_tiles_ptr(long_tiles, n: int, plan: TilePlan, dev):
+    """The address of ``long_tiles`` (None: no record), checked as uint8
+    zeros ``[tiles]`` of ``plan`` on ``dev``."""
+    if long_tiles is None:
+        return None
+    tiles = -(-n // plan.tile_rows)
+    _check(_is_vector(long_tiles, torch.uint8, tiles, dev),
+           f"long_tiles must be contiguous uint8 [{tiles}] on {dev}")
+    return long_tiles.data_ptr()
+
+
+def _launch_compact_encode(args, plan: TilePlan,
+                           long_tiles=None) -> torch.Tensor:
+    """The compact encode kernel over ``args`` (:func:`compact_encode`'s,
+    on one card) by ``plan``: its output.  Where ``long_tiles`` (uint8
+    zeros, one a tile) is given, the kernel sets the tiles that took the
+    long-row route to 1 in it."""
+    fixed, fixed_end, row_offsets, total_bytes, strings = args
+    dev = fixed.device
+    _check(fixed.data_ptr() % 4 == 0, "the fixed sections must be 4-byte "
+                                      "aligned")
     n, stride = fixed.shape
+    flags = _long_tiles_ptr(long_tiles, n, plan, dev)
     out = torch.empty(total_bytes, dtype=torch.uint8, device=dev)
     if n:
         cols = _CompactCols()
@@ -989,7 +1224,9 @@ def compact_encode(fixed: torch.Tensor, fixed_end: int,
             d.chars, d.offsets, d.lo = chars.data_ptr(), offsets.data_ptr(), lo
         launch("compact_encode", ctypes.addressof(cols), fixed.data_ptr(),
                stride, fixed_end, row_offsets.data_ptr(), n, out.data_ptr(),
-               dev.index, stream_of(dev))
+               plan.tile_rows, plan.consumer_warps, plan.stages,
+               plan.chars_bytes, plan.image_bytes, flags, dev.index,
+               stream_of(dev))
     return out
 
 
@@ -1047,22 +1284,46 @@ def string_gather(blob: torch.Tensor, row_offsets: torch.Tensor, pairs,
     chars, row ``r``'s ``str_len[r]`` bytes from ``blob[row_offsets[r] +
     str_off[r]:]`` at ``out_off[r]``.  ``pairs`` holds one ``(str_off,
     str_len, out_off)`` a column (int32 ``[n]``, ``[n]``, ``[n + 1]``, the
-    output offsets the lengths' exclusive sum), ``totals`` each column's
+    output offsets the lengths' exclusive sum: the kernel reads each length
+    as ``out_off[r + 1] - out_off[r]``), ``totals`` each column's
     ``out_off[n]``.  The caller guarantees every pair inside its row and the
-    blob (``row_conversion`` checks them before it calls)."""
+    blob (``row_conversion`` checks them before it calls).  On the card it
+    runs by :func:`gather_plan` of its arguments."""
     _check_gather(blob, row_offsets, pairs, totals)
     dev = blob.device
     if dev.type == "cpu":
         return string_gather_plain(blob, row_offsets, pairs, totals)
     _check(dev.type == "cuda", f"no kernel for device {dev}")
+    args = (blob, row_offsets, pairs, totals)
+    return _launch_string_gather(args, gather_plan(args))
+
+
+def gather_plan(args, **kw) -> TilePlan:
+    """:func:`string_gather_plan` of the string gather's arguments ``args``
+    (keywords passed on)."""
+    blob, row_offsets, pairs, totals = args
+    return string_gather_plan(row_offsets.shape[0] - 1, max(len(pairs), 1),
+                              blob.shape[0], sum(totals), **kw)
+
+
+def _launch_string_gather(args, plan: TilePlan,
+                          long_tiles=None) -> List[torch.Tensor]:
+    """The string gather kernel over ``args`` (:func:`string_gather`'s, on
+    one card) by ``plan``: each column's chars.  ``long_tiles`` as in
+    :func:`_launch_compact_encode`."""
+    blob, row_offsets, pairs, totals = args
+    dev = blob.device
     out = [torch.empty(t, dtype=torch.uint8, device=dev) for t in totals]
     n = row_offsets.shape[0] - 1
+    flags = _long_tiles_ptr(long_tiles, n, plan, dev)
     if n and pairs:
         cols = _GatherCols()
         cols.ncols = len(pairs)
-        for d, (off, ln, out_off), chars in zip(cols.col, pairs, out):
-            d.str_off, d.str_len = off.data_ptr(), ln.data_ptr()
-            d.out_off, d.out = out_off.data_ptr(), chars.data_ptr()
+        for d, (off, _, out_off), chars in zip(cols.col, pairs, out):
+            d.str_off, d.out_off = off.data_ptr(), out_off.data_ptr()
+            d.out = chars.data_ptr()
         launch("string_gather", ctypes.addressof(cols), blob.data_ptr(),
-               row_offsets.data_ptr(), n, dev.index, stream_of(dev))
+               row_offsets.data_ptr(), n, plan.tile_rows,
+               plan.consumer_warps, plan.stages, plan.chars_bytes,
+               plan.image_bytes, flags, dev.index, stream_of(dev))
     return out

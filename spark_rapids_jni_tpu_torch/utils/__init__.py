@@ -1,7 +1,8 @@
 """Utilities of the PyTorch port."""
 
 from spark_rapids_jni_tpu_torch.utils.datagen import (  # noqa: F401
-    cycle_dtypes, json_boundary_docs, json_event_docs, json_window,
+    compact_encode_args, compact_gather_args, cycle_dtypes,
+    json_boundary_docs, json_event_docs, json_window,
     random_bitset, random_strings, random_table, special_floats,
     strings_with_lengths,
 )

@@ -122,6 +122,61 @@ def random_strings(num_rows: int, max_len: int, *, seed: int = 0,
                                 null_probability=null_probability)
 
 
+def compact_encode_args(lens: torch.Tensor, fixed_end: int, *,
+                        seed: int = 0) -> tuple:
+    """The compact encode's arguments (``kernels.compact_encode``) for rows
+    whose string columns have the int lengths ``lens [n, k]`` (any ``k`` up
+    to the kernel's 128, past what a JCUDF layout holds), on their device:
+    random fixed sections of ``fixed_end`` bytes at a stride of
+    ``fixed_end`` rounded up to 8 (zeros past ``fixed_end``), row offsets of
+    the rows' sizes (``fixed_end`` plus their lengths, rounded up to 8),
+    and column ``c``'s random chars from offset ``(5 c + 1) % 16`` of its
+    buffer, so that 16 columns start at every residue mod 16."""
+    dev = lens.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n, k = lens.shape
+    lens = lens.to(torch.int64)
+    stride = -(-fixed_end // 8) * 8
+    fixed = torch.randint(0, 256, (n, stride), dtype=torch.uint8,
+                          generator=gen, device=dev)
+    fixed[:, fixed_end:] = 0
+    sizes = (fixed_end + lens.sum(1) + 7) // 8 * 8
+    row_offsets = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    row_offsets[1:] = torch.cumsum(sizes, 0)
+    strings = []
+    for c in range(k):
+        lead = (5 * c + 1) % 16
+        offsets = torch.full((n + 1,), lead, dtype=torch.int64, device=dev)
+        offsets[1:] += torch.cumsum(lens[:, c], 0)
+        chars = torch.randint(0, 256, (int(offsets[-1]) + 3,),
+                              dtype=torch.uint8, generator=gen, device=dev)
+        strings.append((chars, offsets.to(torch.int32), 0))
+    return (fixed, fixed_end, row_offsets.to(torch.int32),
+            int(row_offsets[-1]), strings)
+
+
+def compact_gather_args(blob: torch.Tensor, row_offsets: torch.Tensor,
+                        fixed_end: int, lens: torch.Tensor) -> tuple:
+    """The string gather's arguments (``kernels.string_gather``) for the
+    rows :func:`compact_encode_args` makes from ``lens [n, k]``, encoded
+    into ``blob``: each string at ``fixed_end`` plus the lengths before it
+    in its row, and each column's output offsets the lengths' running
+    sum."""
+    lens = lens.to(torch.int64)
+    offs = fixed_end + torch.cumsum(lens, 1) - lens
+    pairs, totals = [], []
+    for c in range(lens.shape[1]):
+        out_off = torch.zeros(lens.shape[0] + 1, dtype=torch.int64,
+                              device=lens.device)
+        out_off[1:] = torch.cumsum(lens[:, c], 0)
+        pairs.append((offs[:, c].to(torch.int32).contiguous(),
+                      lens[:, c].to(torch.int32).contiguous(),
+                      out_off.to(torch.int32)))
+        totals.append(int(out_off[-1]))
+    return blob, row_offsets, pairs, totals
+
+
 # float bits the hashes normalise: signed zeros, NaN payloads (quiet and
 # signalling, either sign), infinities, a normal value and a denormal
 _F64_SPECIAL = [0x8000000000000000, 0x0, 0x7FF0000000000001,

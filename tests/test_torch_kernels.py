@@ -28,9 +28,11 @@ from spark_rapids_jni_tpu_torch.table import (
     slice_table_dynamic, valid_bits,
 )
 from spark_rapids_jni_tpu_torch.utils import (
-    cycle_dtypes, json_boundary_docs, json_event_docs, json_window,
+    compact_encode_args, compact_gather_args, cycle_dtypes, json_boundary_docs, json_event_docs, json_window,
     random_bitset, random_table, special_floats, strings_with_lengths,
 )
+
+from _compact_tiles import encode_long_tiles, gather_long_tiles
 
 ALL_FIXED = [INT64, FLOAT64, UINT64, INT32, UINT32, FLOAT32, INT16, UINT16,
              INT8, UINT8, BOOL8, decimal32(2), decimal64(-1)]
@@ -804,6 +806,174 @@ def test_compact_kernels_match_plain_versions(cuda, k, int16):
                 if a.dtype.is_string:
                     assert torch.equal(a.offsets.cpu(), b.offsets)
                     assert torch.equal(a.chars.cpu(), b.chars)
+
+
+def _flags(n, plan, dev):
+    return torch.zeros(-(-n // plan.tile_rows), dtype=torch.uint8, device=dev)
+
+
+def _hold_compact_plans(args, gargs, enc_plans, gat_plans):
+    """Both compact kernels (either one where the other's arguments are
+    None), by the wrappers' plans and by each plan given, byte for byte
+    against their plain versions, and the tiles each launch marks long
+    against ``_compact_tiles``' copy of the producers' test; returns the
+    wrapper's blob and each given plan's long tiles (bool, the encode's
+    plans first)."""
+    blob, longs = None, []
+    if args is not None:
+        n, dev = args[0].shape[0], args[0].device
+        want = kernels.compact_encode_plain(*args)
+        blob = kernels.compact_encode(*args)
+        assert torch.equal(blob, want)
+        for plan in enc_plans:
+            flags = _flags(n, plan, dev)
+            assert torch.equal(
+                kernels._launch_compact_encode(args, plan, flags), want)
+            longs.append(flags.bool())
+            assert torch.equal(longs[-1], encode_long_tiles(
+                plan, args[0], args[2], args[4]))
+        del want
+    if gargs is not None:
+        n, dev = gargs[1].shape[0] - 1, gargs[0].device
+        want = kernels.string_gather_plain(*gargs)
+        for i, plan in enumerate([None] + list(gat_plans)):
+            if plan is None:
+                got = kernels.string_gather(*gargs)
+            else:
+                flags = _flags(n, plan, dev)
+                got = kernels._launch_string_gather(gargs, plan, flags)
+                longs.append(flags.bool())
+                assert torch.equal(longs[-1],
+                                   gather_long_tiles(plan, *gargs[:3]))
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            del got
+    torch.cuda.synchronize()
+    return blob, longs
+
+
+def _tile_table(n, dev, long_row=None):
+    """Three Arrow columns of lengths 0..67 at odd char offsets, an INT64
+    and an INT8 (fixed_end 34); with ``long_row``, that row of the first
+    string holds 100,000 bytes."""
+    fixed = random_table([INT64, INT8], n, seed=n, device=dev)
+    strs = []
+    for j in range(3):
+        lens = (torch.arange(n, device=dev) * (7 + j) + j) % 68
+        if j == 0 and long_row is not None:
+            lens[long_row] = 100_000
+        strs.append(_arrow_column(lens, seed=j, lead=2 * j + 1))
+    return Table((strs[0], fixed.columns[0], strs[1], fixed.columns[1],
+                  strs[2]))
+
+
+@pytest.mark.gpu
+def test_compact_tile_routes_match_plain_versions(cuda):
+    """The compact encode and the string gather on their tile route: n = 1,
+    R - 1, R, R + 1 (R the wrapper's tile rows) and 6,701 rows and a slice
+    from an odd row, by the wrappers' plans and by tiles of 8 and 13 rows
+    on other rings; then by the wrappers' plans with every tile sent down
+    the long-row route."""
+    t = _tile_table(6_701, cuda)
+    layout = compute_row_layout(t.dtypes)
+    R = kernels.encode_plan(_compact_args(t, layout)).tile_rows
+    for tt in [slice_table(t, 0, n) for n in (1, R - 1, R, R + 1, 6_701)] + [
+            slice_table(t, 3, 2_000)]:
+        args = _compact_args(tt, layout)
+        blob = kernels.compact_encode(*args)
+        gargs = _gather_args(blob, args[2], layout)
+        enc = [kernels.encode_plan(args, tile_rows=r) for r in (8, 13)]
+        gat = [kernels.gather_plan(gargs, tile_rows=r, ring=ring)
+               for r in (8, 13) for ring in ((2, 3), (1, 4))]
+        enc += [kernels.encode_plan(args, tile_rows=r, ring=(2, 3))
+                for r in (8, 13)]
+        _, longs = _hold_compact_plans(args, gargs, enc, gat)
+        assert not any(x.any() for x in longs)
+        _, longs = _hold_compact_plans(
+            args, gargs, [kernels.encode_plan(args).long_route()],
+            [kernels.gather_plan(gargs).long_route()])
+        assert all(x.all() for x in longs)
+
+
+@pytest.mark.gpu
+def test_compact_long_row_mid_launch(cuda):
+    """A 100,000-byte string in row 150 of 300 short rows: its tile takes
+    the long-row route in both kernels, between tiles on the tile route,
+    in one launch each; the entry points round-trip the table."""
+    t = _tile_table(300, cuda, long_row=150)
+    layout = compute_row_layout(t.dtypes)
+    args = _compact_args(t, layout)
+    blob = kernels.compact_encode(*args)
+    gargs = _gather_args(blob, args[2], layout)
+    enc = [kernels.encode_plan(args, tile_rows=16), kernels.encode_plan(args)]
+    gat = [kernels.gather_plan(gargs, tile_rows=16), kernels.gather_plan(gargs)]
+    _, longs = _hold_compact_plans(args, gargs, enc, gat)
+    for plan, marked in zip(enc + gat, longs):
+        tile = 150 // plan.tile_rows
+        assert marked.nonzero().view(-1).tolist() == [tile]
+        assert 0 < tile < marked.numel() - 1
+    kernels.reset_launches()
+    [rows] = prc.convert_to_rows(t, device=cuda)
+    back = prc.convert_from_rows(rows, t.dtypes, device=cuda)
+    assert (kernels.launches["compact_encode"],
+            kernels.launches["string_gather"]) == (1, 1)
+    assert torch.equal(rows.data, blob)
+    assert_tables_equivalent(t, back, check_nulls=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [33, 128])
+def test_compact_kernels_many_columns(cuda, k):
+    """33 and 128 string columns (128 past a JCUDF layout: raw arguments),
+    lengths 0..67, every column's chars starting at another residue mod
+    16 (all 16 among them), by the wrappers' plans and tiles of 8 rows,
+    whole and from an odd row."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(k)
+    lens = torch.randint(0, 68, (997, k), generator=gen, device=cuda)
+    fe = 8 * k + (k + 7) // 8
+    args = compact_encode_args(lens, fe, seed=k)
+    fixed, _, ro, _, strings = args
+    odd = (fixed[3:], fe, ro[3:] - ro[3], int(ro[-1] - ro[3]),
+           [(c, o[3:], lo) for c, o, lo in strings])
+    for a, ln in ((args, lens), (odd, lens[3:])):
+        blob = kernels.compact_encode_plain(*a)
+        gargs = compact_gather_args(blob, a[2], fe, ln)
+        _hold_compact_plans(a, gargs, [kernels.encode_plan(a, tile_rows=8)],
+                            [kernels.gather_plan(gargs, tile_rows=8,
+                                                 ring=(1, 2))])
+
+
+@pytest.mark.gpu
+def test_compact_kernels_near_2_gib(cuda):
+    """One row of 128 string columns of 16,777,200 chars each, a batch of
+    2,147,482,640 bytes: the chars' 16-byte chunks (each column's chars at
+    4, 8 or 12 past a 16-byte line) add up to 2^31 bytes.  The tile goes
+    the long-row route in both kernels, and both give their plain
+    versions' bytes."""
+    k, fe, length = 128, 1040, 16_777_200
+    pool = torch.randint(0, 256, (k * (length + 16) + 16,),
+                         dtype=torch.uint8, device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(7))
+    strings = []
+    for c in range(k):
+        at = c * (length + 16) + 4 * (1 + c % 3)
+        strings.append((pool[at:at + length],
+                        torch.tensor([0, length], dtype=torch.int32,
+                                     device=cuda), 0))
+    total = fe + k * length
+    fixed = torch.randint(0, 256, (1, fe), dtype=torch.uint8, device=cuda)
+    ro = torch.tensor([0, total], dtype=torch.int32, device=cuda)
+    args = (fixed, fe, ro, total, strings)
+    blob, longs = _hold_compact_plans(
+        args, None, [kernels.encode_plan(args)], [])
+    del pool, strings, args
+    gargs = compact_gather_args(blob, ro, fe,
+                                torch.full((1, k), length, device=cuda))
+    longs += _hold_compact_plans(None, gargs, [],
+                                 [kernels.gather_plan(gargs)])[1]
+    assert [int(x.sum()) for x in longs] == [1, 1]
 
 
 @pytest.mark.gpu
