@@ -76,7 +76,25 @@ launch count set to 0 just before the path and read just after:
   round trip through ``from_rows`` (one K5 launch), a mixed tick of two
   groups (two K4 launches) and a threaded run of four clients, every
   answer against ``convert_to_rows`` of its own columns (K1), with the
-  tick's time split into stacking, staging, kernel, fetch and slicing.
+  tick's time split into stacking, staging, kernel, fetch and slicing;
+- the query operators (``models.pipeline``, torch ops, no kernel of their
+  own): ``bench.py``'s grouped query on each 4M batch (``query_grouped_4m``:
+  K2, then K6's partition ids, then ``hash_aggregate_table`` of COUNT(*)
+  and SUM by the INT16 column into 256 groups where the id is under 100,
+  each batch against the CPU run, the step's time split into decode, hash
+  and aggregate, the aggregate also timed by the domain strategy, which
+  the default leaves to larger inputs); ``flagship_query_step`` at TPC-DS
+  SF10 (28,800,991 store_sales rows against 102,000 items, against a
+  float64 numpy oracle, by the default domain strategy and by the sort,
+  and timed with one lane a scatter slot);
+  the q72/q95 join shapes at 4M probe rows (``joins_4m``: the duplicate,
+  semi and left joins over 1M build rows, the table joins with 25% null
+  INT32 and STRING keys, each against the CPU run); the aggregate's edges
+  card against CPU (``agg_edges``: every fixed-width key type, DATE32 and a
+  padded STRING key, three null modes, both strategies forced, capacities,
+  an all-dead mask, zero rows, wrapping sums, decimal128 with a null AVG);
+  and the serving runtime's ``agg`` and ``join`` ops (``serve_query``: a
+  tick of 16 requests each, against the direct calls).
 
 Every kernel is held against its plain PyTorch version on the card, bit for
 bit, at every one of those shapes (the compact encode and the string
@@ -107,6 +125,7 @@ one card and no network; its device memory peaks at about 43 GB (the 10.24M
 row phase), which the timing line prints.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -227,6 +246,21 @@ SERVE_THREAD_REQUESTS, SERVE_THREAD_ROWS = 16, (2_000, 8_000)
 ENCODE_RINGS = ((1, 2), (1, 3), (2, 2), (2, 3))
 GATHER_RINGS = ((2, 3), (2, 4), (3, 3), (1, 3))
 
+# the query operators: bench.py's query_grouped capacity; TPC-DS SF10
+# store_sales rows and items (q6's flagship step); the q72/q95 join shapes
+# (4M probe rows against 1M build rows over 100,000 keys, string keys of
+# up to 32 bytes, an output buffer above the about 36M matches); the edge
+# sweep's rows, capacity and key types; the serve query requests' rows
+QUERY_GROUPS = 256
+Q6_ROWS, Q6_ITEMS = 28_800_991, 102_000
+JOIN_BUILD, JOIN_KEYS, JOIN_STR_W = 1_000_000, 100_000, 32
+JOIN_CAPACITY = 48_000_000
+EDGE_ROWS, EDGE_GROUPS = 50_000, 8
+EDGE_KEYS = ("int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
+             "uint64", "bool8", "date32", "decimal32(scale=2)",
+             "decimal64(scale=-1)", "timestamp_us")
+SERVE_QUERY_ROWS = (2_000, 8_000)
+
 KERNELS = (  # name, the TPU kernel it replaces
     ("grouped_encode", "spark_rapids_jni_tpu/ops/row_mxu.py:513"),
     ("decode_planes", "spark_rapids_jni_tpu/ops/row_mxu.py:954"),
@@ -297,6 +331,19 @@ def median_ms(fn, runs=TIMED_RUNS, warmup=3, flush=False):
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def alternating_ms(fns, rounds=10, runs=10):
+    """:func:`median_ms` of each of ``fns`` over ``rounds`` rounds, the
+    order reversed every round (A B, B A, ...) so that no side always runs
+    first.  Returns each side's median over its rounds and its rounds'
+    medians."""
+    per = [[] for _ in fns]
+    for r in range(rounds):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            per[i].append(median_ms(fns[i], runs=runs))
+    return [statistics.median(p) for p in per], per
 
 
 def profile_breakdown(fn, top=8) -> dict:
@@ -2776,6 +2823,512 @@ def phase_serve_rows(errs, timing):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Query operators (models.pipeline): torch ops, no kernel of their own; the
+# grouped query runs K2 and K6 in front of the aggregate
+# ---------------------------------------------------------------------------
+
+def _on_cpu(x):
+    """A tensor, Column, Table or tuple/list of them moved to the CPU."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(_on_cpu(v) for v in x)
+    return x.to("cpu") if hasattr(x, "to") else x
+
+
+def _same(got, want, what):
+    """Card results equal to CPU results, bit for bit: tensors, columns
+    and tables (validity, data under nulls too, string bytes), in tuples
+    and lists."""
+    from spark_rapids_jni_tpu_torch.table import (
+        Column, Table, assert_tables_equivalent, bits_view,
+    )
+    if isinstance(want, (tuple, list)):
+        check(len(got) == len(want), f"{what}: {len(got)} != {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same(g, w, f"{what}[{i}]")
+    elif isinstance(want, Column):
+        _same(Table((got,)), Table((want,)), what)
+    elif isinstance(want, Table):
+        assert_tables_equivalent(_on_cpu(got), want, check_nulls=False)
+    elif isinstance(want, torch.Tensor):
+        g = got.cpu()
+        check(g.shape == want.shape and g.dtype == want.dtype
+              and torch.equal(bits_view(g), bits_view(want)),
+              f"{what}: card != CPU")
+    else:
+        check(got == want, f"{what}: {got} != {want}")
+
+
+@contextlib.contextmanager
+def _pipeline_setting(name, value):
+    """``models.pipeline``'s module setting ``name`` at ``value`` for a
+    while: ``DENSE_MAX_SLOTS`` 0 forces the sort strategy,
+    ``DOMAIN_MIN_ROWS`` 0 lets the domain strategy run at any row count,
+    ``SPREAD_SLOTS`` 0 gives a scatter slot one lane."""
+    from spark_rapids_jni_tpu_torch.models import pipeline
+    saved = getattr(pipeline, name)
+    setattr(pipeline, name, value)
+    try:
+        yield
+    finally:
+        setattr(pipeline, name, saved)
+
+
+def phase_query_grouped(batches, dtypes, timing):
+    """``bench.py``'s ``query_grouped`` step on each 4M batch of the
+    212-column table: ``convert_from_rows_grouped`` (K2), ``pmod(murmur3(
+    [col 2, col 4]), 200)`` (K6), then ``hash_aggregate_table(g, [4],
+    [COUNT(*), SUM(col 2)], 256, mask=pids < 100)``; each result against
+    the port's CPU run on the same key, measure and mask columns."""
+    from spark_rapids_jni_tpu_torch import Table
+    from spark_rapids_jni_tpu_torch.models import pipeline
+    from spark_rapids_jni_tpu_torch.ops import (
+        convert_from_rows_grouped, murmur3_hash, pmod,
+    )
+    from spark_rapids_jni_tpu_torch.ops import kernels
+    measures = [(None, "count"), (2, "sum")]
+
+    def step(b):
+        g = convert_from_rows_grouped(b, dtypes)
+        pids = pmod(murmur3_hash([g.column(2), g.column(4)]),
+                    NUM_PARTITIONS)
+        return g, pids, pipeline.hash_aggregate_table(
+            g, [4], measures, QUERY_GROUPS, mask=pids < 100)
+
+    pipeline.reset_strategies()
+    outs, launches = _read_path(kernels, lambda: [step(b) for b in batches])
+    strategies = dict(pipeline.strategies)
+    check(launches["decode_planes"] == len(batches)
+          and launches["murmur3_cols"] == len(batches)
+          and sum(launches.values()) == 2 * len(batches),
+          f"query_grouped launches {launches}")
+    groups = []
+    for i, (g, pids, res) in enumerate(outs):
+        cpu = Table((g.column(2).to("cpu"), g.column(4).to("cpu")))
+        want = pipeline.hash_aggregate_table(
+            cpu, [1], [(None, "count"), (0, "sum")], QUERY_GROUPS,
+            mask=(pids < 100).cpu())
+        _same(res, want, f"query_grouped batch {i}")
+        check(int(res[2]) > QUERY_GROUPS and bool(res[1].all()),
+              f"batch {i}: {int(res[2])} groups")
+        groups.append(int(res[2]))
+    b0 = batches[0]
+    g0, pids0, _ = outs[0]
+    del outs
+
+    def aggregate():
+        return pipeline.hash_aggregate_table(g0, [4], measures, QUERY_GROUPS,
+                                             mask=pids0 < 100)
+
+    def by_domain():
+        # the domain strategy, which the default leaves to larger inputs
+        with _pipeline_setting("DOMAIN_MIN_ROWS", 0):
+            return aggregate()
+    want = _on_cpu(aggregate())
+    pipeline.reset_strategies()
+    _same(by_domain(), want, "query_grouped by the domain")
+    check(dict(pipeline.strategies) == {"domain": 1},
+          f"domain not taken: {dict(pipeline.strategies)}")
+    del want
+    (agg_ms, domain_ms), rounds = alternating_ms([aggregate, by_domain])
+    split = {
+        "step_ms": median_ms(lambda: step(b0), runs=10),
+        "decode_ms": median_ms(
+            lambda: convert_from_rows_grouped(b0, dtypes), runs=10),
+        "hash_ms": median_ms(lambda: pmod(murmur3_hash(
+            [g0.column(2), g0.column(4)]), NUM_PARTITIONS), runs=10),
+        "aggregate_ms": agg_ms, "aggregate_domain_ms": domain_ms}
+    prof = profile_breakdown(aggregate)
+    timing["query_grouped_4m"] = {"batch_rows": b0.num_rows, **split}
+    emit(phase="query_grouped_4m", rows=N_4M,
+         batch_rows=[b.num_rows for b in batches], launches=launches,
+         strategies=strategies, num_groups=groups,
+         max_groups=QUERY_GROUPS, equal_cpu=True, ms_per_batch=split,
+         aggregate_rounds_ms={"default": rounds[0], "domain": rounds[1]},
+         aggregate_profile=prof)
+    return launches
+
+
+def _q6_inputs(gen):
+    """TPC-DS SF10 store_sales and item cardinalities, made on the card
+    with ``__graft_entry__.entry()``'s distributions: 30 sold dates (the
+    month q6 selects), every sale's item among the items, quantity 1..100,
+    price uniform in [1, 100), item prices uniform in [1, 80)."""
+    n, items = Q6_ROWS, Q6_ITEMS
+
+    def ints(lo, hi, size):
+        return torch.randint(lo, hi, (size,), dtype=torch.int32,
+                             device=CARD, generator=gen)
+
+    def floats(lo, hi, size):
+        return torch.rand(size, device=CARD, generator=gen) * (hi - lo) + lo
+    return (ints(0, 30, n), ints(0, items, n), ints(1, 101, n),
+            floats(1, 100, n),
+            torch.randperm(items, device=CARD, generator=gen)
+            .to(torch.int32), floats(1, 80, items))
+
+
+def phase_flagship_q6():
+    """``flagship_query_step`` at SF10: 28,800,991 sales against 102,000
+    items, held against a float64 numpy oracle (groups, have and
+    num_groups exact, each sum within a relative 1e-3)."""
+    from spark_rapids_jni_tpu_torch.models import pipeline
+    reset_peak()
+    gen = torch.Generator(device=CARD)
+    gen.manual_seed(6)
+    args = _q6_inputs(gen)
+    date, item, qty, price, bkey, bprice = (a.cpu().numpy() for a in args)
+    by_key = np.empty(Q6_ITEMS, np.float32)
+    by_key[bkey] = bprice
+    keep = price > np.float32(1.2) * by_key[item]
+    rev = price.astype(np.float64) * qty
+    oracle = np.bincount(date[keep], weights=rev[keep], minlength=30)
+    dates = np.nonzero(np.bincount(date[keep], minlength=30))[0]
+    g = len(dates)
+
+    def q6():
+        return pipeline.flagship_query_step(*args)
+
+    def hold(what, fn):
+        """One step against the oracle; returns the largest relative error
+        of a sum and the strategy the step took."""
+        pipeline.reset_strategies()
+        gk, sums, have, ng = (x.cpu().numpy() for x in fn())
+        check(int(ng) == g and have[:g].all() and not have[g:].any()
+              and np.array_equal(gk[:g], dates),
+              f"{what} groups {gk[have]} ({int(ng)}) != {dates}")
+        rel = np.abs(sums[:g] - oracle[dates]) / np.abs(oracle[dates])
+        check(float(rel.max()) <= 1e-3, f"{what} sums off by {rel.max()}")
+        return float(rel.max()), dict(pipeline.strategies)
+
+    def by_sort():
+        with _pipeline_setting("DENSE_MAX_SLOTS", 0):
+            return q6()
+
+    def one_lane():
+        with _pipeline_setting("SPREAD_SLOTS", 0):
+            return q6()
+    err, strategies = hold("q6", q6)
+    sort_err, forced = hold("q6 by the sort", by_sort)
+    check(forced == {"sort": 1}, f"sort not forced: {forced}")
+    (ms, sort_ms), rounds = alternating_ms([q6, by_sort], runs=5)
+    one_lane_ms = median_ms(one_lane, runs=5)
+    emit(phase="flagship_q6_sf10", rows=Q6_ROWS, items=Q6_ITEMS,
+         groups=g, kept_rows=int(keep.sum()), strategies=strategies,
+         max_rel_err=err, median_ms=ms, rows_per_s=Q6_ROWS / ms * 1e3,
+         sort_ms=sort_ms, sort_max_rel_err=sort_err,
+         rounds_ms={"default": rounds[0], "sort": rounds[1]},
+         one_lane_ms=one_lane_ms,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         profile=profile_breakdown(q6))
+    return {"median_ms": ms, "sort_ms": sort_ms, "one_lane_ms": one_lane_ms,
+            "max_rel_err": err}
+
+
+def _string_keys(ids, gen_bytes):
+    """Dense-padded STRING keys of ``JOIN_STR_W`` bytes, one value an id:
+    lengths 0..32 (ids 0, 1, 2 take 0, 1 and 2 bytes, the rest 3 + id % 30),
+    the id's three low bytes first (so that every value differs), random
+    bytes after, zeros past each length."""
+    from spark_rapids_jni_tpu_torch import Column
+    lens_of = 3 + torch.arange(JOIN_KEYS, device=CARD) % 30
+    lens_of[:3] = torch.arange(3, device=CARD)
+    table = gen_bytes.clone()
+    ar = torch.arange(JOIN_KEYS, device=CARD)
+    for j in range(3):
+        table[:, j] = ((ar >> (8 * j)) & 0xFF).to(torch.uint8)
+    table.masked_fill_(torch.arange(JOIN_STR_W, device=CARD)
+                       >= lens_of[:, None], 0)
+    return Column.padded_strings(table[ids], lens_of[ids].to(torch.int32))
+
+
+def phase_joins():
+    """The q72 and q95 join shapes at 4M probe rows against 1M build rows
+    over 100,000 keys: ``sort_merge_join_dup``, ``join_semi_mask`` and
+    ``sort_merge_join_left``; ``join_inner_table`` and
+    ``join_semi_mask_table`` with 25% null keys, INT32 and dense-padded
+    STRING keys (0..32 bytes).  Each against the CPU run, and timed."""
+    from spark_rapids_jni_tpu_torch import INT32, Column, Table
+    from spark_rapids_jni_tpu_torch.models import pipeline as pl
+    from spark_rapids_jni_tpu_torch.table import pack_bools
+    gen = torch.Generator(device=CARD)
+    gen.manual_seed(7)
+    reset_peak()
+    bk = torch.randint(0, JOIN_KEYS, (JOIN_BUILD,), dtype=torch.int32,
+                       device=CARD, generator=gen)
+    bp = torch.randint(-10**6, 10**6, (JOIN_BUILD,), dtype=torch.int32,
+                       device=CARD, generator=gen)
+    pk = torch.randint(0, JOIN_KEYS + JOIN_KEYS // 10, (N_4M,),
+                       dtype=torch.int32, device=CARD, generator=gen)
+    cbk, cbp, cpk = bk.cpu(), bp.cpu(), pk.cpu()
+    out, times = {}, {}
+
+    def run(name, fn, args, cargs):
+        got = fn(*args)
+        _same(got, fn(*cargs), name)
+        times[name] = median_ms(lambda: fn(*args), runs=5)
+        return got
+
+    dup = run("sort_merge_join_dup", pl.sort_merge_join_dup,
+              (bk, bp, pk, JOIN_CAPACITY), (cbk, cbp, cpk, JOIN_CAPACITY))
+    out["dup_total"] = int(dup[3])
+    check(not bool(dup[4]), f"dup join overflow at {int(dup[3])}")
+    del dup
+    semi = run("join_semi_mask", pl.join_semi_mask, (bk, pk), (cbk, cpk))
+    out["semi_matched"] = int(semi.sum())
+    left = run("sort_merge_join_left", pl.sort_merge_join_left,
+               (bk, bp, pk, JOIN_CAPACITY), (cbk, cbp, cpk, JOIN_CAPACITY))
+    out["left_total"] = int(left[4])
+    del left, semi
+
+    def nulls(n):
+        return pack_bools(torch.rand(n, device=CARD, generator=gen) > 0.25)
+    byte_table = torch.randint(0, 256, (JOIN_KEYS, JOIN_STR_W),
+                               dtype=torch.uint8, device=CARD, generator=gen)
+    for kind in ("int32", "string"):
+        if kind == "int32":
+            bcol = Column(INT32, bk, nulls(JOIN_BUILD))
+            pcol = Column(INT32, pk, nulls(N_4M))
+        else:
+            bcol = _string_keys(bk.long(), byte_table)
+            bcol.validity = nulls(JOIN_BUILD)
+            pcol = _string_keys(pk.long() % JOIN_KEYS, byte_table)
+            pcol.validity = nulls(N_4M)
+        build = Table((bcol, Column(INT32, bp, nulls(JOIN_BUILD))))
+        probe = Table((pcol,))
+        cb, cp = _on_cpu(build), _on_cpu(probe)
+        inner = run(f"join_inner_table_{kind}", pl.join_inner_table,
+                    (build, 0, 1, probe, 0, JOIN_CAPACITY),
+                    (cb, 0, 1, cp, 0, JOIN_CAPACITY))
+        check(not bool(inner[5]), f"inner {kind} overflow")
+        out[f"inner_{kind}_total"] = int(inner[4])
+        del inner
+        semi = run(f"join_semi_mask_table_{kind}", pl.join_semi_mask_table,
+                   (build, 0, probe, 0), (cb, 0, cp, 0))
+        out[f"semi_{kind}_matched"] = int(semi.sum())
+        del build, probe, cb, cp, semi
+    emit(phase="joins_4m", probe_rows=N_4M, build_rows=JOIN_BUILD,
+         keys=JOIN_KEYS, capacity=JOIN_CAPACITY, equal_cpu=True, **out,
+         ms=times, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return times
+
+
+def _edge_tables(rng, n, null_mode):
+    """Host-made tables of every fixed-width key type, DATE32 and a padded
+    STRING key (values repeating, the types' extremes among them), beside
+    INT32 and INT64 measures near their maxima, a float32 measure and a
+    decimal128 measure of +-(10^38 - 1) down to 1."""
+    from spark_rapids_jni_tpu_torch import Column, Table
+    from spark_rapids_jni_tpu_torch.ops.decimal import decimal128_from_ints
+    from spark_rapids_jni_tpu_torch.table import dtype_from_name
+
+    def valid():
+        if null_mode == "none":
+            return None
+        return (np.ones(n, bool) if null_mode == "all"
+                else rng.random(n) > 0.25)
+    cols = []
+    for name in EDGE_KEYS:
+        d = dtype_from_name(name)
+        info = np.iinfo(d.np_dtype)
+        small = [0, 1, 2, 3, 5, 7] + ([-1, -5, -9] if info.min else [9, 99])
+        pool = np.array([int(info.min), int(info.max)] + small,
+                        dtype=object).astype(d.np_dtype)
+        if name == "bool8":
+            pool = np.array([0, 1], np.uint8)
+        v = pool[rng.integers(0, len(pool), n)]
+        cols.append(Column.from_numpy(v, d, valid(), device="cpu"))
+    strs = [None if s % 11 == 0 else "k" * (s % 7) + chr(0x41 + s % 5)
+            for s in range(40)]
+    pick = rng.integers(0, len(strs), n)
+    sc = Column.strings_padded([strs[i] for i in pick], device="cpu")
+    if null_mode != "some":
+        sc.validity = None if null_mode == "none" else \
+            torch.from_numpy(np.packbits(np.ones(n, bool),
+                                         bitorder="little"))
+    cols.append(sc)
+    meas = [Column.from_numpy(rng.integers(2**30, 2**31 - 1, n)
+                              .astype(np.int32), dtype_from_name("int32"),
+                              valid(), device="cpu"),
+            Column.from_numpy(rng.integers(2**62, 2**63 - 1, n,
+                                           dtype=np.int64),
+                              dtype_from_name("int64"), valid(),
+                              device="cpu"),
+            Column.from_numpy(rng.uniform(-1e3, 1e3, n).astype(np.float32),
+                              dtype_from_name("float32"), valid(),
+                              device="cpu")]
+    mags = [10**38 - 1, 10**37, 123456789, 1]
+    ints = [int((-1) ** int(s)) * mags[int(m)] for s, m in
+            zip(rng.integers(0, 2, n), rng.integers(0, 4, n))]
+    v = valid()
+    meas.append(decimal128_from_ints(ints, 0, v, device="cpu"))
+    return Table(tuple(cols + meas))
+
+
+def phase_agg_edges():
+    """``hash_aggregate_table`` on the card against the CPU, exact except
+    the float32 SUM (relative 1e-5 of the group's sum of |values|): every
+    fixed-width key type, DATE32 and a padded STRING key under the null
+    modes none, all and some; capacities below, at and above the group
+    count; an all-dead mask and zero rows; INT32 and INT64 SUM past their
+    maxima; decimal128 SUM, MIN, MAX and AVG (quotients past 38 digits
+    null); each strategy forced."""
+    from spark_rapids_jni_tpu_torch.models import pipeline as pl
+    from spark_rapids_jni_tpu_torch.table import slice_table
+    rng = np.random.default_rng(8)
+    nk = len(EDGE_KEYS) + 1
+    light = [(None, "count"), (nk, "sum"), (nk + 1, "sum"), (nk + 1, "max"),
+             (nk + 2, "sum")]
+    heavy = light + [(nk + 3, op) for op in ("count", "sum", "min", "max",
+                                             "avg")]
+    cases = 0
+    strat = {}
+    for mode in ("none", "all", "some"):
+        cpu = _edge_tables(rng, EDGE_ROWS, mode)
+        card = cpu.to(CARD)
+        mask = torch.from_numpy(rng.random(EDGE_ROWS) > 0.1)
+        for ki in range(nk):
+            measures = heavy if ki == 0 else light
+            # the card by the sort, then by the domain wherever the keys'
+            # range fits 4M slots
+            for dense in (0, 1 << 22):
+                want = pl.hash_aggregate_table(cpu, [ki], measures,
+                                               EDGE_GROUPS, mask=mask)
+                pl.reset_strategies()
+                with _pipeline_setting("DENSE_MAX_SLOTS", dense), \
+                        _pipeline_setting("DOMAIN_MIN_ROWS", 0):
+                    got = pl.hash_aggregate_table(card, [ki], measures,
+                                                  EDGE_GROUPS,
+                                                  mask=mask.to(CARD))
+                for s, c in pl.strategies.items():
+                    strat[s] = strat.get(s, 0) + c
+                _hold_agg(got, want, measures, nk, f"{mode} key {ki}")
+                cases += 1
+        if mode == "some":
+            ng = int(pl.hash_aggregate_table(
+                cpu, [0, nk - 1], light, 4096, mask=mask)[2])
+            for mg in (ng - 5, ng, ng + 5):
+                _hold_agg(pl.hash_aggregate_table(
+                    card, [0, nk - 1], heavy, mg, mask=mask.to(CARD)),
+                    pl.hash_aggregate_table(cpu, [0, nk - 1], heavy, mg,
+                                            mask=mask),
+                    heavy, nk, f"capacity {mg} of {ng}")
+                cases += 1
+            dead = torch.zeros(EDGE_ROWS, dtype=torch.bool)
+            _hold_agg(pl.hash_aggregate_table(card, [0], heavy, 8,
+                                              mask=dead.to(CARD)),
+                      pl.hash_aggregate_table(cpu, [0], heavy, 8, mask=dead),
+                      heavy, nk, "all dead")
+            zero = slice_table(cpu, 0, 0)
+            _hold_agg(pl.hash_aggregate_table(zero.to(CARD), [0], heavy, 8),
+                      pl.hash_aggregate_table(zero, [0], heavy, 8),
+                      heavy, nk, "zero rows")
+            cases += 2
+            res, have, _ = pl.hash_aggregate_table(
+                cpu, [0], heavy, EDGE_GROUPS, mask=mask)
+            nulls = int((have & ~res.columns[-1].valid_bools()).sum())
+            check(nulls > 0, "no decimal128 AVG overflowed to null")
+    check(strat.get("domain", 0) > 0 and strat.get("sort", 0) > 0,
+          f"strategies {strat}")
+    emit(phase="agg_edges", rows=EDGE_ROWS, cases=cases, strategies=strat,
+         decimal_avg_null_groups=nulls, equal_cpu=True)
+
+
+def _hold_agg(got, want, measures, nk, what):
+    """An aggregate on the card against its CPU run: everything exact but
+    the float32 SUM columns (relative 1e-5 of the group's sum of |v|)."""
+    table, have, ng = got
+    wt, wh, wng = want
+    _same(have, wh, f"{what} have")
+    check(int(ng) == int(wng), f"{what} num_groups {int(ng)} != {int(wng)}")
+    nkeys = wt.num_columns - len(measures)
+    for i, (c, w) in enumerate(zip(table.columns, wt.columns)):
+        m = measures[i - nkeys] if i >= nkeys else None
+        if m is not None and m[0] == nk + 2 and m[1] == "sum":
+            # both sum in float64 in their own order and round to float32:
+            # values in [-1e3, 1e3), so 1e-5 of max(|sum|, 1e3) covers the
+            # order and the rounding
+            _same(c.valid_bools(), w.valid_bools(), f"{what} col {i} valid")
+            g, x = c.data.cpu().double(), w.data.double()
+            check(bool(((g - x).abs() <= 1e-5 * x.abs().clamp(min=1e3))
+                       .all()), f"{what} col {i} float sum")
+        else:
+            _same(c, w, f"{what} col {i}")
+
+
+def phase_serve_query():
+    """A ``Scheduler()`` on the card serves 16 ``agg`` requests in one
+    tick and 16 ``join`` requests in another, each tick twice (the second
+    timed: the first loads the ops' kernels); each answer of the second
+    equals the direct call on its padded inputs."""
+    from spark_rapids_jni_tpu_torch.models import pipeline as pl
+    from spark_rapids_jni_tpu_torch.runtime import shapes
+    from spark_rapids_jni_tpu_torch.serve import Client, Scheduler
+    rng = np.random.default_rng(9)
+    sched = Scheduler()
+
+    def padded(a, b):
+        out = torch.zeros(b, dtype=torch.int32, device=CARD)
+        out[:len(a)] = torch.from_numpy(a).to(CARD)
+        return out
+
+    def live(n, b):
+        return torch.arange(b, device=CARD) < n
+    try:
+        aggs = [(rng.integers(0, 300, n).astype(np.int32),
+                 rng.integers(-2**31, 2**31 - 1, n).astype(np.int32))
+                for n in rng.integers(*SERVE_QUERY_ROWS, SERVE_REQUESTS)]
+        # a first tick of the same requests loads the ops' kernels; the
+        # second is timed and checked
+        agg_tick_ms = []
+        for _ in range(2):
+            futs = [Client(sched, f"t{i % 4}").aggregate(k, v)
+                    for i, (k, v) in enumerate(aggs)]
+            t0 = time.perf_counter()
+            served = sched.tick()
+            agg_tick_ms.append((time.perf_counter() - t0) * 1e3)
+            check(served == SERVE_REQUESTS, f"agg tick served {served}")
+        for i, ((k, v), f) in enumerate(zip(aggs, futs)):
+            r = f.result(timeout=60)
+            b = shapes.bucket_rows(len(k))
+            d = pl.hash_aggregate_sum(padded(k, b), padded(v, b),
+                                      live(len(k), b), pl.MAX_GROUPS)
+            for name, x in zip(("group_keys", "sums", "have"), d):
+                check(np.array_equal(r[name], x.cpu().numpy()),
+                      f"serve agg {i} {name} != direct call")
+            check(r["num_groups"] == int(d[3]), f"serve agg {i} groups")
+        joins = []
+        for m, n in zip(rng.integers(1_000, 4_000, SERVE_REQUESTS),
+                        rng.integers(2_000, 8_000, SERVE_REQUESTS)):
+            joins.append((rng.permutation(20_000)[:m].astype(np.int32),
+                          rng.integers(-999, 999, m).astype(np.int32),
+                          rng.integers(0, 20_000, n).astype(np.int32)))
+        join_tick_ms = []
+        for _ in range(2):
+            futs = [Client(sched, f"t{i % 4}").join(*j)
+                    for i, j in enumerate(joins)]
+            t0 = time.perf_counter()
+            sched.tick()
+            join_tick_ms.append((time.perf_counter() - t0) * 1e3)
+        for i, ((bk, bp, pk), f) in enumerate(zip(joins, futs)):
+            r = f.result(timeout=60)
+            bm, bn = shapes.bucket_rows(len(bk)), shapes.bucket_rows(len(pk))
+            pay, matched = pl.sort_merge_join_live(
+                padded(bk, bm), padded(bp, bm), live(len(bk), bm),
+                padded(pk, bn))
+            check(np.array_equal(r["payload"], pay[:len(pk)].cpu().numpy())
+                  and np.array_equal(r["matched"],
+                                     matched[:len(pk)].cpu().numpy()),
+                  f"serve join {i} != direct call")
+    finally:
+        sched.close()
+    emit(phase="serve_query", requests=SERVE_REQUESTS,
+         agg_rows=[int(len(k)) for k, _ in aggs],
+         agg_tick_ms=agg_tick_ms[1], agg_first_tick_ms=agg_tick_ms[0],
+         join_tick_ms=join_tick_ms[1], join_first_tick_ms=join_tick_ms[0],
+         equal_direct=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2955,9 +3508,11 @@ def main():
     add_launches(phase_row_kernels_4m(table, dtypes, gc, errs))
     del gc
 
-    # -- the hash and bloom paths
+    # -- the hash and bloom paths, and the grouped query over path 1
     add_launches(phase_hash_partition(table, batches, dtypes, errs, timing))
-    del table, batches, b
+    del table
+    add_launches(phase_query_grouped(batches, dtypes, timing))
+    del batches, b
     torch.cuda.empty_cache()
     add_launches(phase_hash_keys(errs, timing))
     torch.cuda.empty_cache()
@@ -3001,6 +3556,16 @@ def main():
     for name in ("planes_to_rows", "rows_to_planes"):
         check(path_launches[name] > 0,
               f"{name} never launched on its paths: {path_launches}")
+
+    # -- the query operators: the flagship step at SF10, the q72/q95 joins,
+    # the aggregate's edges card against CPU, and the serve agg/join ops
+    timing["flagship_q6_sf10"] = phase_flagship_q6()
+    torch.cuda.empty_cache()
+    timing["joins_4m"] = phase_joins()
+    torch.cuda.empty_cache()
+    phase_agg_edges()
+    phase_serve_query()
+    torch.cuda.empty_cache()
 
     # -- decimal128 through every fixed-width engine
     add_launches(phase_decimal128_rows_1m(errs))

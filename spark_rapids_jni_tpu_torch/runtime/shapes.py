@@ -18,8 +18,9 @@ pow-2 from :data:`MIN_ROWS` by default.
 - :func:`pad_table` / :func:`pad_column` pad the row axis with rows that
   are **invalid**: the padded validity mask is the contract, and it is
   always materialised, also for a column without a mask or a table already
-  at its bucket.  :func:`unpad_column`, :func:`unpad_array` and
-  :func:`unpad_result` slice results back to the true row count.
+  at its bucket.  :func:`pad_mask` pads a row mask with dead rows.
+  :func:`unpad_column`, :func:`unpad_array` and :func:`unpad_result`
+  slice results back to the true row count.
 
 Left out: ``note`` and the ``pad_span``/``unpad_span`` spans, which stamp
 the padding on the obs spans (``ROADMAP.md`` queue 1, item 13);
@@ -134,6 +135,16 @@ def pad_to(arr: torch.Tensor, shape) -> torch.Tensor:
     out = torch.zeros(shape, dtype=arr.dtype, device=arr.device)
     out[tuple(slice(0, s) for s in arr.shape)] = arr
     return out
+
+
+def pad_mask(mask: Optional[torch.Tensor], n: int, b: int,
+             device=None) -> torch.Tensor:
+    """Row-liveness mask padded to ``b`` rows with a False tail (padded rows
+    must not form groups or match joins); ``None`` gives the prefix mask
+    of ``n`` live rows."""
+    if mask is None:
+        return torch.arange(b, device=resolve_device(device)) < n
+    return pad_to(mask, (b,))
 
 
 def _pad_validity(validity: Optional[torch.Tensor], n: int, b: int,

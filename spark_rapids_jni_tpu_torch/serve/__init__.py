@@ -6,8 +6,10 @@ submissions flow through a bounded queue; a scheduler tick coalesces every
 same-shape-bucket group into ONE padded mega-batch, staged host -> device
 as one blob (:mod:`runtime.staging`), served by one kernel launch and
 fetched back in one transfer, then hands each request its slice.  The
-ported ops are ``rows`` and ``unrows`` (JCUDF row conversion of all-valid
-INT32 columns, through the word-plane pack and unpack kernels).
+ops are ``agg`` (group-by-sum) and ``join`` (unique-key equi-join), over
+the query operators of ``models.pipeline``, and ``rows`` and ``unrows``
+(JCUDF row conversion of all-valid INT32 columns, through the word-plane
+pack and unpack kernels).
 
 Quick start::
 
@@ -19,9 +21,9 @@ Quick start::
         out = fut.result(timeout=5)              # {'rows': ..., ...}
 
 Admission control raises :class:`QueueFull` instead of blocking;
-``Scheduler.healthz()`` reports queue depth and shed state.  The ``agg``
-and ``join`` ops, the fleet, router, replica and chaos layers, and the
-``__main__`` demo wait for later slices (``ROADMAP.md`` queue 1, item 14).
+``Scheduler.healthz()`` reports queue depth and shed state.  The fleet,
+router, replica and chaos layers and the ``__main__`` demo wait for later
+slices (``ROADMAP.md`` queue 1, item 14).
 """
 
 from spark_rapids_jni_tpu_torch.serve.client import Client  # noqa: F401

@@ -4,9 +4,8 @@ The PyTorch counterpart of ``spark_rapids_jni_tpu.serve.client``: each method
 validates through the op registry and returns a
 ``concurrent.futures.Future`` resolving to the op's result dict (call
 ``.result(timeout)`` to block).  One client per tenant; clients are cheap
-and thread-safe (all state lives in the scheduler).  ``aggregate`` and
-``join`` need the query pipeline (``ROADMAP.md`` queue 1, item 9); ``traced``
-waits for the observability layer (item 13).
+and thread-safe (all state lives in the scheduler).  ``traced`` waits for
+the observability layer (``ROADMAP.md`` queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -18,9 +17,6 @@ from spark_rapids_jni_tpu_torch.runtime import resilience as _resilience
 from spark_rapids_jni_tpu_torch.serve.queue import QueueFull
 
 __all__ = ["Client"]
-
-_PIPELINE = ("needs the query pipeline (models/pipeline.py), which waits for "
-             "ROADMAP.md queue 1, item 9")
 
 
 class Client:
@@ -64,25 +60,32 @@ class Client:
 
     def aggregate(self, keys, values, max_groups: Optional[int] = None,
                   deadline_s: Optional[float] = None):
-        """Group-by-sum: not ported yet."""
-        raise NotImplementedError(f"Client.aggregate {_PIPELINE}")
+        """Group-by-sum of int32 keys and values; resolves to
+        ``{group_keys, sums, have, num_groups}`` (arrays of ``max_groups``,
+        default ``serve.ops.DEFAULT_MAX_GROUPS``).
+
+        ``deadline_s`` (here and on every method below) bounds the
+        request's total queue and dispatch time: past it the scheduler
+        drops the request before staging and its future carries
+        :class:`runtime.resilience.DeadlineExceeded`.  It also bounds
+        admission: a ``QueueFull(reason="full")`` rejection retries with
+        backoff until the deadline (see :meth:`_submit`)."""
+        kw = {} if max_groups is None else {"max_groups": max_groups}
+        kw.update(keys=keys, values=values)
+        return self._submit("agg", deadline_s, kw)
 
     def join(self, build_keys, build_payload, probe_keys,
              deadline_s: Optional[float] = None):
-        """Unique-key equi-join: not ported yet."""
-        raise NotImplementedError(f"Client.join {_PIPELINE}")
+        """Unique-key equi-join; resolves to ``{payload, matched}`` aligned
+        with ``probe_keys`` (unmatched payload slots are 0)."""
+        return self._submit("join", deadline_s, dict(
+            build_keys=build_keys, build_payload=build_payload,
+            probe_keys=probe_keys))
 
     def to_rows(self, columns: Sequence,
                 deadline_s: Optional[float] = None):
         """JCUDF fixed-width row conversion of all-valid int32 columns;
-        resolves to ``{rows, row_size, num_rows}`` (flat uint8).
-
-        ``deadline_s`` (here and in :meth:`from_rows`) bounds the request's
-        total queue and dispatch time: past it the scheduler drops the
-        request before staging and its future carries
-        :class:`runtime.resilience.DeadlineExceeded`.  It also bounds
-        admission: a ``QueueFull(reason="full")`` rejection retries with
-        backoff until the deadline (see :meth:`_submit`)."""
+        resolves to ``{rows, row_size, num_rows}`` (flat uint8)."""
         return self._submit("rows", deadline_s, dict(columns=columns))
 
     def from_rows(self, rows, ncols: int,

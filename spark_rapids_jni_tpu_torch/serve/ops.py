@@ -13,16 +13,24 @@ continuous-batching contract:
   requests are zeros).  They ship to the device as ONE blob
   (:func:`runtime.staging.stage_arrays`).
 - ``kernel(sig, kb)``: a function on the staged device tensors that serves
-  the whole group with one kernel launch.
+  the whole group in one call (one kernel launch for ``rows`` and
+  ``unrows``).
 - ``unbatch(host_outs, slot, payload)``: cut request ``slot``'s result out
   of the fetched outputs, unpadded back to its true rows.
 
-Two ops are ported, the JCUDF row conversion of all-valid INT32 columns:
-``rows`` (word-plane assembly, then one pack kernel launch, K4, over every
-request's rows) and ``unrows`` (one unpack kernel launch, K5, then the
-columns).  Their results are byte-identical to ``convert_to_rows`` and
-``convert_from_rows`` of the same columns.  The ``agg`` and ``join`` ops
-need the query pipeline (``ROADMAP.md`` queue 1, item 9).
+The ops: ``agg``, group-by-sum of int32 keys and values
+(:func:`models.pipeline.hash_aggregate_sum` over each request's rows padded
+to its bucket, the pad rows dead); ``join``, the unique-key equi-join
+(:func:`models.pipeline.sort_merge_join_live`, the padded build rows dead);
+and the JCUDF row conversion of all-valid INT32 columns, ``rows``
+(word-plane assembly, then one pack kernel launch, K4, over every request's
+rows) and ``unrows`` (one unpack kernel launch, K5, then the columns).  The
+``agg`` and ``join`` kernels run request by request over the group's staged
+tensors, in torch ops (the JAX package ``vmap``s them into one program).
+Every result equals the direct call on the request's padded inputs:
+``agg`` and ``join`` are integer-exact, so padding cannot change a value,
+and ``rows``/``unrows`` are byte-identical to ``convert_to_rows`` and
+``convert_from_rows`` of the same columns.
 """
 
 from __future__ import annotations
@@ -33,12 +41,15 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from spark_rapids_jni_tpu_torch.models import pipeline
 from spark_rapids_jni_tpu_torch.ops import plane_rows
 from spark_rapids_jni_tpu_torch.ops.row_layout import compute_row_layout
 from spark_rapids_jni_tpu_torch.runtime import shapes
 from spark_rapids_jni_tpu_torch.table import INT32, Column, Table
 
-__all__ = ["ServeOp", "get", "names"]
+__all__ = ["ServeOp", "get", "names", "DEFAULT_MAX_GROUPS"]
+
+DEFAULT_MAX_GROUPS = pipeline.MAX_GROUPS
 
 
 def _as_i32(name: str, v) -> np.ndarray:
@@ -71,6 +82,126 @@ class ServeOp:
     def unbatch(self, host_outs: Sequence[np.ndarray], slot: int,
                 payload: Dict[str, Any]) -> Dict[str, Any]:
         raise NotImplementedError
+
+
+def _stack_pad(arrs: Sequence[np.ndarray], kb: int, width: int,
+               dtype) -> np.ndarray:
+    """``[kb, width]``: row i is ``arrs[i]`` zero-padded; rows past
+    ``len(arrs)`` are all-zero pad requests."""
+    out = np.zeros((kb, width), dtype)
+    for i, a in enumerate(arrs):
+        out[i, :a.shape[0]] = a
+    return out
+
+
+def _prefix_mask(counts: Sequence[int], kb: int, width: int) -> np.ndarray:
+    """``[kb, width]`` bool: the first ``counts[i]`` entries of row i."""
+    out = np.zeros((kb, width), np.bool_)
+    for i, c in enumerate(counts):
+        out[i, :c] = True
+    return out
+
+
+# ---------------------------------------------------------------------------
+# agg: group-by-sum (models.pipeline.hash_aggregate_sum)
+# ---------------------------------------------------------------------------
+
+def _agg_kernel(max_groups: int):
+    def serve_agg(keys, values, mask):       # [kb, b] each
+        outs = [pipeline.hash_aggregate_sum(k, v, m, max_groups)
+                for k, v, m in zip(keys, values, mask)]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]),
+                torch.stack([o[2] for o in outs]),
+                torch.stack([o[3] for o in outs]))
+    return serve_agg
+
+
+class _AggOp(ServeOp):
+    name = "agg"
+
+    def validate(self, kwargs):
+        keys = _as_i32("keys", kwargs.pop("keys"))
+        values = _as_i32("values", kwargs.pop("values"))
+        max_groups = int(kwargs.pop("max_groups", DEFAULT_MAX_GROUPS))
+        if kwargs:
+            raise ValueError(f"unknown agg arguments: {sorted(kwargs)}")
+        if values.shape != keys.shape:
+            raise ValueError("keys/values length mismatch")
+        if max_groups < 1:
+            raise ValueError(f"max_groups must be positive, got {max_groups}")
+        n = keys.shape[0]
+        payload = {"keys": keys, "values": values, "n": n,
+                   "max_groups": max_groups}
+        sig = (shapes.bucket_rows(n), max_groups)
+        return payload, sig, n, keys.nbytes + values.nbytes
+
+    def batch(self, payloads, sig, kb):
+        b = sig[0]
+        return [_stack_pad([p["keys"] for p in payloads], kb, b, np.int32),
+                _stack_pad([p["values"] for p in payloads], kb, b, np.int32),
+                _prefix_mask([p["n"] for p in payloads], kb, b)]
+
+    def kernel(self, sig, kb):
+        return _agg_kernel(sig[1])
+
+    def unbatch(self, host_outs, slot, payload):
+        gkeys, sums, have, num_groups = host_outs
+        return {"group_keys": np.array(gkeys[slot]),
+                "sums": np.array(sums[slot]),
+                "have": np.array(have[slot]),
+                "num_groups": int(num_groups[slot])}
+
+
+# ---------------------------------------------------------------------------
+# join: unique-key equi-join (models.pipeline.sort_merge_join_live)
+# ---------------------------------------------------------------------------
+
+def _join_kernel(build_keys, build_payload, build_live, probe_keys):
+    outs = [pipeline.sort_merge_join_live(bk, bp, bl, pk)
+            for bk, bp, bl, pk in zip(build_keys, build_payload, build_live,
+                                      probe_keys)]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+class _JoinOp(ServeOp):
+    name = "join"
+
+    def validate(self, kwargs):
+        bk = _as_i32("build_keys", kwargs.pop("build_keys"))
+        bp = _as_i32("build_payload", kwargs.pop("build_payload"))
+        pk = _as_i32("probe_keys", kwargs.pop("probe_keys"))
+        if kwargs:
+            raise ValueError(f"unknown join arguments: {sorted(kwargs)}")
+        if bp.shape != bk.shape:
+            raise ValueError("build_keys/build_payload length mismatch")
+        m, n = bk.shape[0], pk.shape[0]
+        payload = {"build_keys": bk, "build_payload": bp,
+                   "probe_keys": pk, "m": m, "n": n}
+        sig = (shapes.bucket_rows(m), shapes.bucket_rows(n))
+        return payload, sig, n, bk.nbytes + bp.nbytes + pk.nbytes
+
+    def batch(self, payloads, sig, kb):
+        bm, bn = sig
+        return [
+            _stack_pad([p["build_keys"] for p in payloads], kb, bm,
+                       np.int32),
+            _stack_pad([p["build_payload"] for p in payloads], kb, bm,
+                       np.int32),
+            _prefix_mask([p["m"] for p in payloads], kb, bm),
+            _stack_pad([p["probe_keys"] for p in payloads], kb, bn,
+                       np.int32),
+        ]
+
+    def kernel(self, sig, kb):
+        return _join_kernel
+
+    def unbatch(self, host_outs, slot, payload):
+        pay, matched = host_outs
+        n = payload["n"]
+        return {"payload": np.array(pay[slot][:n]),
+                "matched": np.array(matched[slot][:n])}
 
 
 # ---------------------------------------------------------------------------
@@ -203,17 +334,11 @@ class _UnrowsOp(ServeOp):
                 "num_rows": n}
 
 
-_OPS: Dict[str, ServeOp] = {op.name: op for op in (_RowsOp(), _UnrowsOp())}
-# ops of the JAX package that need its query pipeline
-_WAITING = ("agg", "join")
+_OPS: Dict[str, ServeOp] = {op.name: op for op in (
+    _AggOp(), _JoinOp(), _RowsOp(), _UnrowsOp())}
 
 
 def get(name: str) -> ServeOp:
-    if name in _WAITING:
-        raise NotImplementedError(
-            f"the serve op {name!r} needs the query pipeline "
-            f"(models/pipeline.py), which waits for ROADMAP.md queue 1, "
-            f"item 9")
     try:
         return _OPS[name]
     except KeyError:

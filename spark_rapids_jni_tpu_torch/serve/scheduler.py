@@ -8,7 +8,8 @@ group stages ONE mega-batch blob host -> device
 (:func:`runtime.staging.stage_arrays`), runs the op's kernel once over every
 request of the group, fetches every output in ONE transfer
 (:func:`staging.fetch_arrays`), and hands each request its slice.  K
-concurrent same-bucket requests therefore cost one launch per tick.
+concurrent same-bucket requests therefore cost one call of the op's kernel
+per tick (one launch for the row ops).
 
 Tenant isolation under faults: a failed group dispatch falls back to
 per-request execution (each request its own single-slot batch, on the same

@@ -521,6 +521,28 @@ class Column:
                              "chars2d and lens, or offsets and chars")
         return bits_view(self.data).cpu().numpy().view(self.dtype.np_dtype)
 
+    def to_pylist(self) -> list:
+        """Per-row host values, None for a null row: Python ints and
+        floats (bool for BOOL8, the unscaled int for decimal128), strings
+        decoded as UTF-8."""
+        n = self.num_rows
+        valid = self.valid_bools().cpu().tolist()
+        if self.dtype.is_string:
+            ch = self.chars_window(_string_width(self)).cpu().numpy()
+            lens = self.str_lens().cpu().tolist()
+            return [bytes(ch[i, :lens[i]]).decode("utf-8") if valid[i]
+                    else None for i in range(n)]
+        elif self.dtype.kind == "decimal128":
+            vals = []
+            for row in self.to_numpy().astype(np.uint64).tolist():
+                two = sum(int(x) << (32 * k) for k, x in enumerate(row))
+                vals.append(two - (1 << 128) if two >> 127 else two)
+        elif self.dtype.kind == "bool8":
+            vals = [bool(v) for v in self.to_numpy().tolist()]
+        else:
+            vals = self.to_numpy().tolist()
+        return [v if ok else None for v, ok in zip(vals, valid)]
+
     def to(self, device) -> "Column":
         def move(t):
             return None if t is None else t.to(device)

@@ -1,8 +1,9 @@
 """PyTorch port, the serving runtime (``serve/``, ``runtime/``): the
-``rows``/``unrows`` ops through the continuous-batching scheduler, held
-against the JAX package's ``serve.Scheduler`` and ``convert_to_rows`` on the
-same payloads, plus coalescing, admission control, cancellation, deadlines,
-tenant isolation, the out-of-memory split and the bucket grid.  Everything
+``rows``/``unrows`` and ``agg``/``join`` ops through the continuous-batching
+scheduler, held against the JAX package's ``serve.Scheduler``,
+``convert_to_rows`` and the direct pipeline calls on the same payloads, plus
+coalescing, admission control, cancellation, deadlines, tenant isolation,
+the out-of-memory split and the bucket grid.  Everything
 runs on the CPU (``device="cpu"``): the kernels' plain versions."""
 
 import sys
@@ -16,6 +17,7 @@ import torch
 from spark_rapids_jni_tpu import serve as jserve
 from spark_rapids_jni_tpu.runtime import shapes as jshapes
 from spark_rapids_jni_tpu_torch import INT32, Table, serve
+from spark_rapids_jni_tpu_torch.models import pipeline
 from spark_rapids_jni_tpu_torch.ops import convert_to_rows, kernels
 from spark_rapids_jni_tpu_torch.runtime import resilience, shapes, staging
 
@@ -299,6 +301,66 @@ def test_threaded_loop_answers_every_request():
     assert s.healthz()["served"] == nthreads * per
 
 
+def _padded(a, b):
+    out = np.zeros(b, a.dtype)
+    out[:len(a)] = a
+    return torch.from_numpy(out)
+
+
+def test_agg_and_join_match_jax_scheduler_and_direct_calls(sched):
+    """Requests of several tenants in one tick (agg: two buckets, one of
+    them coalescing three clients; join: build sides padded with dead rows,
+    a live build key equal to 0 beside the zero pad), each against the JAX
+    scheduler's answer and against the direct call on its padded rows."""
+    rng = np.random.default_rng(21)
+    js = jserve.Scheduler()
+    try:
+        aggs = [(rng.integers(-6, 6, n).astype(np.int32),
+                 rng.integers(-2 ** 31, 2 ** 31 - 1, n).astype(np.int32), mg)
+                for n, mg in ((37, 8), (33, 8), (40, 8), (200, 4))]
+        futs = [serve.Client(sched, f"t{i}").aggregate(k, v, mg)
+                for i, (k, v, mg) in enumerate(aggs)]
+        jfuts = [jserve.Client(js, f"t{i}").aggregate(k, v, mg)
+                 for i, (k, v, mg) in enumerate(aggs)]
+        assert sched.tick() == len(aggs)
+        js.tick()
+        for (k, v, mg), f, jf in zip(aggs, futs, jfuts):
+            r, jr = f.result(timeout=30), jf.result(timeout=30)
+            b = shapes.bucket_rows(len(k))
+            direct = pipeline.hash_aggregate_sum(
+                _padded(k, b), _padded(v, b),
+                _padded(np.ones(len(k), bool), b), mg)
+            for name, d in zip(("group_keys", "sums", "have"), direct):
+                np.testing.assert_array_equal(r[name], np.asarray(jr[name]))
+                np.testing.assert_array_equal(r[name], d.numpy())
+            assert r["num_groups"] == jr["num_groups"] == int(direct[3])
+        joins = []
+        for m, n in ((21, 45), (9, 30), (3, 64)):
+            bk = rng.permutation(np.arange(1, 100))[:m].astype(np.int32)
+            bk[0] = 0                       # a live key equal to the pad
+            pk = rng.integers(0, 100, n).astype(np.int32)
+            pk[:2] = 0
+            joins.append((bk, rng.integers(1, 1000, m).astype(np.int32), pk))
+        futs = [serve.Client(sched, f"t{i}").join(*j)
+                for i, j in enumerate(joins)]
+        jfuts = [jserve.Client(js, f"t{i}").join(*j)
+                 for i, j in enumerate(joins)]
+        sched.tick()
+        js.tick()
+        for (bk, bp, pk), f, jf in zip(joins, futs, jfuts):
+            r, jr = f.result(timeout=30), jf.result(timeout=30)
+            bm, bn = shapes.bucket_rows(len(bk)), shapes.bucket_rows(len(pk))
+            pay, matched = pipeline.sort_merge_join_live(
+                _padded(bk, bm), _padded(bp, bm),
+                _padded(np.ones(len(bk), bool), bm), _padded(pk, bn))
+            for name, d in (("payload", pay), ("matched", matched)):
+                np.testing.assert_array_equal(r[name], np.asarray(jr[name]))
+                np.testing.assert_array_equal(r[name], d.numpy()[:len(pk)])
+            assert r["matched"][pk == 0].all()
+    finally:
+        js.close()
+
+
 def test_bucket_grid_matches_jax():
     ns = range(0, 70_001)
     assert [shapes.bucket_rows(n) for n in ns] == \
@@ -336,12 +398,20 @@ def test_ops_reject_malformed_and_unported(sched):
         c.from_rows(np.zeros(7, np.uint8), 1)
     with pytest.raises(ValueError):
         sched.submit("alice", "nope")
-    for op in ("agg", "join"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-            sched.submit("alice", op, keys=[1], values=[1])
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        c.aggregate([1], [1])
-    assert serve.ops.names() == ["rows", "unrows"]
+    with pytest.raises(ValueError):
+        c.aggregate([1, 2], [1])
+    with pytest.raises(ValueError):
+        c.aggregate([], [])
+    with pytest.raises(ValueError):
+        c.aggregate([1.5], [1])
+    with pytest.raises(ValueError):
+        sched.submit("alice", "agg", keys=[1], values=[1], extra=1)
+    with pytest.raises(ValueError):
+        c.join([1, 2], [1], [1])
+    with pytest.raises(ValueError):
+        sched.submit("alice", "join", build_keys=[1], build_payload=[1],
+                     probe_keys=[[1]])
+    assert serve.ops.names() == ["agg", "join", "rows", "unrows"]
     assert resilience.classify(torch.cuda.OutOfMemoryError("x")) == \
         resilience.RESOURCE
     assert resilience.classify(ValueError("x")) == resilience.DETERMINISTIC
