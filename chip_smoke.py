@@ -94,7 +94,21 @@ launch count set to 0 just before the path and read just after:
   padded STRING key, three null modes, both strategies forced, capacities,
   an all-dead mask, zero rows, wrapping sums, decimal128 with a null AVG);
   and the serving runtime's ``agg`` and ``join`` ops (``serve_query``: a
-  tick of 16 requests each, against the direct calls).
+  tick of 16 requests each, against the direct calls);
+- Spark's casts and the decimal arithmetic (``ops.cast_string``,
+  ``ops.decimal``, torch ops, no kernel of their own), each call on the
+  card against the port's CPU run of the same input, bit for bit, with
+  its CUDA-event time and busy share: ``casts_1m`` (string to INT8..INT64,
+  FLOAT32/64, DECIMAL(38, 2) and (38, 18), DATE and TIMESTAMP over
+  1,048,576 texts of each made on the card by ``utils.cast_strings``:
+  about 10% null, 5% invalid, 1% overflowing and 0.5% past the parse
+  windows, which punt to the host; the float casts' numpy conversion timed
+  on its own), ``to_string_1m`` (the four integer types, days,
+  microseconds and decimal128 at scales 0, 2, 38 and -3, 1,048,576 rows
+  each), ``decimal_arith_1m`` (add, sub, mul, rescale by +4 and -4, div
+  over 1,048,576 rows, about 1% overflowing) and ``cast_edges``
+  (``utils.CAST_EDGE_STRINGS`` through every cast, ``ansi=True`` raising
+  the same message on both sides, and the edge values of every type).
 
 Every kernel is held against its plain PyTorch version on the card, bit for
 bit, at every one of those shapes (the compact encode and the string
@@ -3329,6 +3343,358 @@ def phase_serve_query():
          equal_direct=True)
 
 
+# ---------------------------------------------------------------------------
+# Casts and decimal arithmetic (ops.cast_string, ops.decimal): torch ops, no
+# kernel of their own; every result against the port's CPU run
+# ---------------------------------------------------------------------------
+
+N_CAST = 1 << 20
+_COLUMN_FIELDS = ("data", "validity", "chars2d", "lens", "offsets", "chars")
+
+
+def _string_casts() -> dict:
+    """name -> (the ``utils.cast_strings`` kind of its texts, the call)."""
+    from spark_rapids_jni_tpu_torch import (
+        FLOAT32, FLOAT64, INT8, INT16, INT32, INT64,
+    )
+    from spark_rapids_jni_tpu_torch.ops import cast_string as cs
+    casts = {dt.kind: (dt.kind, lambda c, dt=dt, **k:
+                       cs.cast_string_to_int(c, dt, **k))
+             for dt in (INT8, INT16, INT32, INT64)}
+    for dt in (FLOAT32, FLOAT64):
+        casts[dt.kind] = ("float", lambda c, dt=dt, **k:
+                          cs.cast_string_to_float(c, dt, **k))
+    for s in (2, 18):
+        casts[f"decimal_{s}"] = ("decimal", lambda c, s=s, **k:
+                                 cs.cast_string_to_decimal128(c, s, **k))
+    casts["date"] = ("date", cs.cast_string_to_date)
+    casts["timestamp"] = ("timestamp", cs.cast_string_to_timestamp)
+    return casts
+
+
+def _random_bits(n, dtype, gen):
+    """``n`` values of an integer ``dtype`` with uniform random bits."""
+    size = torch.empty(0, dtype=dtype).element_size()
+    return torch.randint(0, 256, (n, size), dtype=torch.uint8, device=CARD,
+                         generator=gen).view(dtype).view(n)
+
+
+def _same_fields(got, want, what):
+    """A card column equal to its CPU run in every tensor it holds (data
+    under nulls, masks, string bytes, lengths and offsets), bit for bit;
+    tuples and error masks too."""
+    from spark_rapids_jni_tpu_torch.table import Column
+    if isinstance(want, tuple):
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_fields(g, w, f"{what}[{i}]")
+        return
+    if not isinstance(want, Column):
+        _same(got, want, what)
+        return
+    check(got.dtype == want.dtype, f"{what}: {got.dtype} != {want.dtype}")
+    for f in _COLUMN_FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        check((g is None) == (w is None), f"{what}: {f} present on one side")
+        if w is not None:
+            _same(g, w, f"{what} {f}")
+
+
+def _cast_punts(name, col) -> dict:
+    """The rows of ``col`` the cast ``name`` sends to the host parse, and
+    the host time of their parse (their bytes' copy included, as the cast
+    runs it)."""
+    from spark_rapids_jni_tpu_torch.ops import cast_string as cs
+    if name.startswith("int"):
+        size = int(name[3:]) // 8
+        punted = cs._cast_int(col, size)[2]
+        parse = lambda raw: cs._host_parse_punted(raw, size)  # noqa: E731
+    elif name.startswith("float"):
+        punted = cs._float_grammar(col, cs.FLOAT_PARSE_WIDTH)[-1]
+        parse = cs._host_parse_float
+    elif name.startswith("decimal"):
+        scale = int(name.split("_")[1])
+        punted = cs._cast_decimal(col, scale, cs.DEC_PARSE_WIDTH)[-1]
+        parse = lambda raw: cs._host_parse_decimal(raw, scale)  # noqa: E731
+    else:
+        punted = cs._parse_temporal(col, name == "timestamp")["punted"]
+        parse = cs._host_parse_date if name == "date" \
+            else cs._host_parse_timestamp
+    rows = torch.nonzero(punted & col.valid_bools())[:, 0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for raw in cs._host_rows(col, rows):
+        parse(raw)
+    return {"punted_rows": len(rows),
+            "punt_host_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def _float_host_ms(col, runs=5) -> float:
+    """Median host time of the float cast's numpy conversion
+    (``cast_string._float_values``) over this column's windows."""
+    from spark_rapids_jni_tpu_torch.ops import cast_string as cs
+    width = cs.FLOAT_PARSE_WIDTH
+    ch, tlen, valid, cls, suffix, _ = cs._float_grammar(col, width)
+    finite = valid & (cls == 0) & col.valid_bools()
+    glen = tlen - suffix.to(torch.int32)
+    w = torch.where(torch.arange(width, device=ch.device) < glen[:, None],
+                    ch, 0)[finite].cpu().numpy()
+    args = (finite.cpu().numpy(), valid.cpu().numpy(), cls.cpu().numpy())
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        cs._float_values(w, args[0], args[1].copy(), args[2])
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _timed_call(fn, runs=5) -> dict:
+    """A call's CUDA-event median and its ``profile_breakdown`` busy
+    share."""
+    prof = profile_breakdown(fn)
+    return {"ms": median_ms(fn, runs=runs, warmup=1),
+            "busy_share": prof["busy_share"], "kernel_ms": prof["kernel_ms"],
+            "profile_wall_ms": prof["wall_ms"], "launches": prof["launches"]}
+
+
+def _no_kernel_launches(kernels, run, what):
+    """``run()``'s result, checked to launch no hand-written kernel: these
+    paths are torch ops."""
+    out, launches = _read_path(kernels, run)
+    check(sum(launches.values()) == 0, f"{what} launched {launches}")
+    return out
+
+
+def phase_casts_1m(kernels):
+    """Each string cast over 1,048,576 texts of its type made on the card
+    (``utils.cast_strings``: about 10% null, 5% invalid, 1% overflowing,
+    0.5% past the windows), against the port's CPU run of the same
+    column: values or float bits, validity and error masks equal."""
+    from spark_rapids_jni_tpu_torch.utils import cast_strings
+    reset_peak()
+    out = {}
+    for i, (name, (kind, fn)) in enumerate(_string_casts().items()):
+        col = cast_strings(kind, N_CAST, seed=20 + i, device=CARD)
+        got = _no_kernel_launches(kernels, lambda: fn(col), f"cast {name}")
+        t0 = time.perf_counter()
+        want = fn(col.to("cpu"), device="cpu")
+        cpu_s = time.perf_counter() - t0
+        _same_fields(got, want, f"casts_1m {name}")
+        rec = {**_timed_call(lambda: fn(col)), "cpu_s": cpu_s,
+               **_cast_punts(name, col),
+               "null_rows": int((~col.valid_bools()).sum()),
+               "error_rows": int(got[1].sum()),
+               "chars": int(col.offsets[-1])}
+        if name.startswith("float"):
+            rec["host_ms"] = _float_host_ms(col)
+        out[name] = rec
+        del col, got, want
+    emit(phase="casts_1m", rows=N_CAST, equal_cpu=True, casts=out,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def _dec_limbs(gen, n, big_share):
+    """int32 ``[n, 4]`` decimal128 limbs: values under 10^18 in magnitude,
+    ``big_share`` of them within 2^32 of +-(10^38 - 1)."""
+    from spark_rapids_jni_tpu_torch.ops import decimal as dec
+    small = torch.randint(-10 ** 18, 10 ** 18, (n,), device=CARD,
+                          generator=gen)
+    limbs = torch.stack([small & 0xFFFFFFFF, (small >> 32) & 0xFFFFFFFF]
+                        + [(small >> 63) & 0xFFFFFFFF] * 2, dim=1)
+    bound = dec._const_limbs(dec._BOUND_LIMBS, n, CARD)
+    near = dec._sub_limbs(bound, torch.stack(
+        [torch.randint(0, 1 << 32, (n,), device=CARD, generator=gen)]
+        + [torch.zeros(n, dtype=torch.int64, device=CARD)] * 3, dim=1))
+    near = torch.where((torch.rand(n, device=CARD, generator=gen) < 0.5)
+                       [:, None], dec._neg_limbs(near), near)
+    big = torch.rand(n, device=CARD, generator=gen) < big_share
+    return dec._data(torch.where(big[:, None], near, limbs))
+
+
+def phase_to_string_1m(kernels):
+    """``cast_int_to_string`` of the four integer types (random bits, the
+    minimum and maximum among them), ``cast_date_to_string`` and
+    ``cast_timestamp_to_string`` of random days and microseconds (years
+    outside 1..9999 among them), ``cast_decimal128_to_string`` at scales
+    0, 2, 38 and -3; 1,048,576 rows each, against the CPU run."""
+    from spark_rapids_jni_tpu_torch import (
+        DATE32, INT8, INT16, INT32, INT64, TIMESTAMP64, Column, decimal128,
+    )
+    from spark_rapids_jni_tpu_torch.ops import cast_string as cs
+    from spark_rapids_jni_tpu_torch.ops import decimal as dec
+    from spark_rapids_jni_tpu_torch.table import pack_bools
+    gen = torch.Generator(device=CARD)
+    gen.manual_seed(30)
+    n = N_CAST
+
+    def valid():
+        return pack_bools(torch.rand(n, device=CARD, generator=gen) >= 0.1)
+
+    def share(p):
+        return torch.rand(n, device=CARD, generator=gen) < p
+    cols = {}
+    for dt in (INT8, INT16, INT32, INT64):
+        info = torch.iinfo(dt.torch_dtype)
+        v = _random_bits(n, dt.torch_dtype, gen)
+        v[:2] = torch.tensor([info.min, info.max], device=CARD)
+        cols[dt.kind] = (Column(dt, v, valid()), cs.cast_int_to_string)
+    days = torch.randint(-900_000, 3_100_000, (n,), device=CARD,
+                         generator=gen, dtype=torch.int32)
+    cols["date"] = (Column(DATE32, days, valid()), cs.cast_date_to_string)
+    # years 1..9999, whole seconds or milliseconds on some rows, any bits
+    # on a tenth
+    micros = torch.randint(-62135596800 * 10 ** 6, 253402300800 * 10 ** 6,
+                           (n,), device=CARD, generator=gen)
+    micros = torch.where(share(0.3), micros // 10 ** 6 * 10 ** 6, micros)
+    micros = torch.where(share(0.3), micros // 1000 * 1000, micros)
+    micros = torch.where(share(0.1), _random_bits(n, torch.int64, gen),
+                         micros)
+    micros[:2] = torch.tensor([-(1 << 63), (1 << 63) - 1], device=CARD)
+    cols["timestamp"] = (Column(TIMESTAMP64, micros, valid()),
+                         cs.cast_timestamp_to_string)
+    limbs = _dec_limbs(gen, n, 0.05)
+    for s in (0, 2, 38, -3):
+        cols[f"decimal_{s}"] = (Column(decimal128(s), limbs, valid()),
+                                lambda c, device=None:
+                                dec.cast_decimal128_to_string(c))
+    out = {}
+    for name, (col, fn) in cols.items():
+        got = _no_kernel_launches(kernels, lambda: fn(col),
+                                  f"to_string {name}")
+        t0 = time.perf_counter()
+        want = fn(col.to("cpu"), device="cpu")
+        cpu_s = time.perf_counter() - t0
+        _same_fields(got, want, f"to_string_1m {name}")
+        out[name] = {**_timed_call(lambda: fn(col)), "cpu_s": cpu_s,
+                     "null_rows": int((~got.valid_bools()).sum())}
+    emit(phase="to_string_1m", rows=n, equal_cpu=True, casts=out)
+    return out
+
+
+def phase_decimal_arith_1m(kernels):
+    """``add``, ``sub``, ``mul``, ``rescale`` (+4 and -4) and ``div`` over
+    1,048,576 decimal128 rows at scale 2, about 1% of the operands near
+    +-(10^38 - 1) so that sums, products and the rescale up overflow, and
+    0.5% zero divisors; against the CPU run."""
+    from spark_rapids_jni_tpu_torch import Column, decimal128
+    from spark_rapids_jni_tpu_torch.ops import decimal as dec
+    from spark_rapids_jni_tpu_torch.table import pack_bools
+    gen = torch.Generator(device=CARD)
+    gen.manual_seed(31)
+    n = N_CAST
+
+    def operand():
+        return Column(decimal128(2), _dec_limbs(gen, n, 0.01), pack_bools(
+            torch.rand(n, device=CARD, generator=gen) >= 0.1))
+    a, b = operand(), operand()
+    zero = torch.rand(n, device=CARD, generator=gen) < 0.005
+    b = Column(b.dtype, torch.where(zero[:, None], 0, b.data), b.validity)
+    ops = {"add": lambda x, y: dec.add_decimal128(x, y),
+           "sub": lambda x, y: dec.sub_decimal128(x, y),
+           "mul": lambda x, y: dec.mul_decimal128(x, y),
+           "rescale_up_4": lambda x, y: dec.rescale_decimal128(x, 6),
+           "rescale_down_4": lambda x, y: dec.rescale_decimal128(x, -2),
+           "div": lambda x, y: dec.div_decimal128(x, y, 6)}
+    ca, cb = a.to("cpu"), b.to("cpu")
+    out = {}
+    for name, fn in ops.items():
+        got = _no_kernel_launches(kernels, lambda: fn(a, b),
+                                  f"decimal {name}")
+        t0 = time.perf_counter()
+        want = fn(ca, cb)
+        cpu_s = time.perf_counter() - t0
+        _same_fields(got, want, f"decimal_arith_1m {name}")
+        out[name] = {**_timed_call(lambda: fn(a, b), runs=3),
+                     "cpu_s": cpu_s, "overflow_rows": int(got[1].sum())}
+    check(all(out[k]["overflow_rows"] > 0 for k in
+              ("add", "mul", "rescale_up_4", "div")),
+          f"an op without overflow rows: {out}")
+    emit(phase="decimal_arith_1m", rows=n, equal_cpu=True, ops=out)
+    return out
+
+
+def _ansi_message(fn, col, **kw):
+    """The message ``fn(col, ansi=True)`` raises, or None."""
+    try:
+        fn(col, ansi=True, **kw)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def phase_cast_edges(kernels):
+    """``utils.CAST_EDGE_STRINGS`` through every string cast, on the card
+    against the CPU, ``ansi=True`` raising the same message on both; the
+    edge values of every integer type, of days and microseconds, and of
+    decimal128 at four scales through the casts to string and the
+    decimal arithmetic."""
+    from spark_rapids_jni_tpu_torch import (
+        DATE32, INT8, INT16, INT32, INT64, TIMESTAMP64, Column,
+    )
+    from spark_rapids_jni_tpu_torch.ops import cast_string as cs
+    from spark_rapids_jni_tpu_torch.ops import decimal as dec
+    from spark_rapids_jni_tpu_torch.utils import CAST_EDGE_STRINGS
+    edges = Column.strings(CAST_EDGE_STRINGS + [None], device="cpu")
+    on_card = edges.to(CARD)
+    cases = 0
+    for name, (_, fn) in _string_casts().items():
+        got = _no_kernel_launches(kernels, lambda: fn(on_card),
+                                  f"edge {name}")
+        _same_fields(got, fn(edges, device="cpu"), f"cast_edges {name}")
+        msg = _ansi_message(fn, on_card)
+        check(msg is not None and msg.startswith("ANSI cast failure")
+              and msg == _ansi_message(fn, edges, device="cpu"),
+              f"cast_edges {name} ansi: {msg}")
+        cases += 2
+    for dt in (INT8, INT16, INT32, INT64):
+        info = torch.iinfo(dt.torch_dtype)
+        v = torch.tensor([info.min, info.min + 1, -1, 0, 1, 9, 10, -10,
+                          info.max - 1, info.max], dtype=dt.torch_dtype)
+        col = Column(dt, v)
+        got = cs.cast_int_to_string(col.to(CARD))
+        _same_fields(got, cs.cast_int_to_string(col, device="cpu"),
+                     f"cast_edges {dt.kind} to string")
+        check(got.to_pylist() == [str(x) for x in v.tolist()],
+              f"cast_edges {dt.kind} digits")
+        cases += 1
+    days = torch.tensor([-(1 << 31), (1 << 31) - 1, -719163, -719162, -1, 0,
+                         2932896, 2932897, 11016, -141427], dtype=torch.int32)
+    micros = torch.tensor([-(1 << 63), (1 << 63) - 1, -1, 0, 1, 999_999,
+                           -62135596800 * 10 ** 6,
+                           -62135596800 * 10 ** 6 - 1,
+                           253402300799999999, 253402300800000000,
+                           1673766296250000, 86399999999], dtype=torch.int64)
+    for col, fn in ((Column(DATE32, days), cs.cast_date_to_string),
+                    (Column(TIMESTAMP64, micros),
+                     cs.cast_timestamp_to_string)):
+        _same_fields(fn(col.to(CARD)), fn(col, device="cpu"),
+                     f"cast_edges {col.dtype.kind} to string")
+        cases += 1
+    bound = 10 ** 38 - 1
+    vals = [0, 1, -1, bound, -bound, bound - 1, (1 << 127) - 1, -(1 << 127),
+            10 ** 37, -(10 ** 37), 5, -5, 49999, -50000, 12345678901234567890]
+    for s in (0, 2, 38, -3):
+        col = dec.decimal128_from_ints(vals, s, device="cpu")
+        _same_fields(dec.cast_decimal128_to_string(col.to(CARD)),
+                     dec.cast_decimal128_to_string(col),
+                     f"cast_edges decimal {s} to string")
+        cases += 1
+    a = dec.decimal128_from_ints(vals, 2, device="cpu")
+    b = dec.decimal128_from_ints(vals[::-1], 2, device="cpu")
+    for name, fn in (("add", dec.add_decimal128), ("sub", dec.sub_decimal128),
+                     ("mul", dec.mul_decimal128),
+                     ("div", lambda x, y: dec.div_decimal128(x, y, 6))):
+        _same_fields(fn(a.to(CARD), b.to(CARD)), fn(a, b),
+                     f"cast_edges decimal {name}")
+        cases += 1
+    for s in (-40, -39, -4, 0, 4, 38, 39, 41):
+        _same_fields(dec.rescale_decimal128(a.to(CARD), s),
+                     dec.rescale_decimal128(a, s),
+                     f"cast_edges rescale to {s}")
+        cases += 1
+    emit(phase="cast_edges", strings=len(CAST_EDGE_STRINGS) + 1, cases=cases,
+         equal_cpu=True)
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3566,6 +3932,15 @@ def main():
     phase_agg_edges()
     phase_serve_query()
     torch.cuda.empty_cache()
+
+    # -- the casts and the decimal arithmetic, card against CPU
+    timing["casts_1m"] = phase_casts_1m(kernels)
+    torch.cuda.empty_cache()
+    timing["to_string_1m"] = phase_to_string_1m(kernels)
+    torch.cuda.empty_cache()
+    timing["decimal_arith_1m"] = phase_decimal_arith_1m(kernels)
+    torch.cuda.empty_cache()
+    phase_cast_edges(kernels)
 
     # -- decimal128 through every fixed-width engine
     add_launches(phase_decimal128_rows_1m(errs))

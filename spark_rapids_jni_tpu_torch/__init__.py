@@ -6,7 +6,12 @@ the reference; this package imports neither JAX nor that package.
 - ``table``: ``Column``/``Table`` containers as torch tensors, fixed-width
   (decimal128 included) and string columns, dense-padded or in Arrow
   layout; ``ops.decimal``
-  builds decimal128 columns from Python ints and reads them back.
+  builds decimal128 columns from Python ints and reads them back, and
+  holds Spark's checked decimal add, subtract, multiply, divide, rescale
+  and ``CAST(decimal AS STRING)``.
+- ``ops.cast_string``: Spark's ``CAST`` between strings and integers,
+  floats, decimals, dates and timestamps (float and double to string wait
+  for a later slice).
 - ``ops.row_conversion``: JCUDF row-format <-> column conversion, the
   flagship op (reference ``src/main/cpp/src/row_conversion.cu``), for
   fixed-width tables, dense-padded string tables and compact rows of
@@ -36,7 +41,8 @@ the reference; this package imports neither JAX nor that package.
   coalesced host <-> device staging
   and the failure taxonomy the serving runtime uses.
 - ``utils.datagen``: seeded random tables (fixed-width columns, and
-  string columns padded or in Arrow layout), made on the device.
+  string columns padded or in Arrow layout), made on the device;
+  ``utils.cast_data``: seeded texts for the casts, and their edge strings.
 - ``interop``: tables, backings and row batches to and from numpy, to hold
   the port against the JAX package on the same data.
 

@@ -9,6 +9,8 @@ string column crosses as four entries, ``("string", chars2d, lens, packed
 validity or None)`` when dense-padded and ``("string", offsets, chars,
 packed validity or None)`` in Arrow layout: the second array's ``ndim``
 tells them apart (2 for ``chars2d``, 1 for the int32 offsets ``[n + 1]``).
+A ``chars2d`` of any width crosses; the port widens it with zero columns to
+a multiple of 4.
 Arrow offsets leave the port rebased to 0, with only the column's own
 chars.  Its ``GroupedColumns`` cross as uint32 planes plus packed masks,
 its ``RowsColumn`` batches as their bytes and offsets, with the padded
@@ -56,8 +58,12 @@ def _column(arrays: ColumnArrays, dev: torch.device) -> Column:
         return Column.arrow_strings(
             torch.from_numpy(np.array(first, np.int32)).to(dev),
             torch.from_numpy(np.array(second, np.uint8)).to(dev), validity)
+    # the port's padded width is a multiple of 4 (the JAX package's string
+    # casts give any width): zero columns widen it
+    chars2d = np.array(first, np.uint8)
+    chars2d = np.pad(chars2d, ((0, 0), (0, -chars2d.shape[1] % 4)))
     return Column.padded_strings(
-        torch.from_numpy(np.array(first, np.uint8)).to(dev),
+        torch.from_numpy(chars2d).to(dev),
         torch.from_numpy(np.array(second, np.int32)).to(dev), validity)
 
 

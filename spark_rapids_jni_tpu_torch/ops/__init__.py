@@ -2,7 +2,9 @@
 tables as dense-padded or compact rows; ``impl="pallas"`` takes the
 word-plane engine of
 :mod:`.plane_rows`, ``impl="xla"`` the generic engine; :mod:`.row_kernels`
-is the per-column-block engine), decimal128 columns (:mod:`.decimal`),
+is the per-column-block engine), decimal128 columns and Spark's checked
+decimal arithmetic (:mod:`.decimal`), Spark's ``CAST`` between strings and
+integers, floats, decimals, dates and timestamps (:mod:`.cast_string`),
 Spark hashing and hash partitioning, the Spark bloom
 filter, and ``get_json_object`` (key and subscript paths over string
 columns).  The serving runtime over the row ops is
@@ -36,4 +38,20 @@ from spark_rapids_jni_tpu_torch.ops.spark_bloom import (  # noqa: F401
 )
 from spark_rapids_jni_tpu_torch.ops.get_json import (  # noqa: F401
     get_json_object,
+)
+from spark_rapids_jni_tpu_torch.ops.cast_string import (  # noqa: F401
+    cast_date_to_string,
+    cast_int_to_string,
+    cast_string_to_date,
+    cast_string_to_decimal128,
+    cast_string_to_float,
+    cast_string_to_int,
+    cast_string_to_timestamp,
+    cast_timestamp_to_string,
+)
+from spark_rapids_jni_tpu_torch.ops.decimal import (  # noqa: F401
+    add_decimal128, cast_decimal128_to_string, decimal128,
+    decimal128_from_ints, decimal128_to_ints,
+    decimal128_to_strings, div_decimal128, mul_decimal128,
+    rescale_decimal128, sub_decimal128,
 )

@@ -449,18 +449,8 @@ class Column:
             if have >= W:
                 return self.chars2d[:, :W]
             return torch.nn.functional.pad(self.chars2d, (0, W - have))
-        dev = self.chars.device
-        if W == 0:
-            return torch.zeros((self.num_rows, 0), dtype=torch.uint8,
-                               device=dev)
-        padded = torch.cat([self.chars, torch.zeros(W, dtype=torch.uint8,
-                                                    device=dev)])
-        starts = self.offsets[:-1].to(torch.int64).clamp(
-            0, self.chars.shape[0])
-        win = padded.unfold(0, W, 1)[starts]
-        win.masked_fill_(torch.arange(W, device=dev)
-                         >= self.str_lens()[:, None], 0)
-        return win
+        return chars_window_at(self.chars, self.offsets[:-1],
+                               self.str_lens(), W)
 
     def _padded_view(self, W: int) -> "Column":
         """The column as dense-padded strings of width ``W`` (a multiple of
@@ -552,6 +542,23 @@ class Column:
 
 
 _BITS_NP = {1: np.uint8, 2: np.int16, 4: np.int32, 8: np.int64}
+
+
+def chars_window_at(chars: torch.Tensor, starts: torch.Tensor,
+                    lens: torch.Tensor, W: int) -> torch.Tensor:
+    """uint8 ``[n, W]``: the ``W`` bytes of flat ``chars`` from each row's
+    start, zeroed past its length (one index a row, into the chars' sliding
+    windows; a start past the chars reads zeros)."""
+    dev = chars.device
+    if W == 0:
+        return torch.zeros((starts.shape[0], 0), dtype=torch.uint8,
+                           device=dev)
+    padded = torch.cat([chars, torch.zeros(W, dtype=torch.uint8,
+                                           device=dev)])
+    win = padded.unfold(0, W, 1)[starts.to(torch.int64).clamp(
+        0, chars.shape[0])]
+    win.masked_fill_(torch.arange(W, device=dev) >= lens[:, None], 0)
+    return win
 
 
 @dataclasses.dataclass

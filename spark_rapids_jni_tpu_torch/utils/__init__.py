@@ -6,3 +6,6 @@ from spark_rapids_jni_tpu_torch.utils.datagen import (  # noqa: F401
     random_bitset, random_strings, random_table, special_floats,
     strings_with_lengths,
 )
+from spark_rapids_jni_tpu_torch.utils.cast_data import (  # noqa: F401
+    CAST_EDGE_STRINGS, CAST_KINDS, cast_strings,
+)
